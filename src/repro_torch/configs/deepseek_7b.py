@@ -1,0 +1,8 @@
+"""deepseek-7b — dense llama-arch [arXiv:2401.02954].
+30L, d_model 4096, 32 heads (GQA kv=32 i.e. MHA), d_ff 11008, vocab 102400."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-7b", arch_type="dense",
+    n_layers=30, d_model=4096, n_heads=32, n_kv_heads=32,
+    d_ff=11008, vocab=102400, head_dim=128, rope_theta=10000.0)
