@@ -19,10 +19,10 @@ The decode hot loop mirrors the reference ``repro/core/engine.py``:
   per ``sync_every`` rounds.
 
 The reference counts compiled XLA programs; the port counts the distinct
-step keys it has built (``("fused", γ_max)``, ``("insert", …)``,
-``("insert-paged", …)``, ``("release",)``) — the quantity that must not
-grow with γ changes or admission churn. Capturing the step in a CUDA graph
-is a later item of the ROADMAP.
+step keys it has built (``("fused", γ_max)``, ``("tree", d_max, b_max)``,
+``("insert", …)``, ``("insert-paged", …)``, ``("release",)``) — the
+quantity that must not grow with γ/b changes or admission churn. Capturing
+the step in a CUDA graph is a later item of the ROADMAP.
 """
 
 from __future__ import annotations
@@ -36,11 +36,18 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import resolve_device
+from ..kernels.verify import tree_verify_fused
 from ..models.kvcache import (PagedAttnCache, insert_slot, paged_insert_row,
-                              paged_release_slot)
+                              paged_release_slot, tree_commit_cache)
 from ..models.model import build_model
 from .specdec import SpecDecodeState, slot_stop_mask, spec_decode_step
+from .tree import (TreeSpec, TreeVerifyResult, tree_committed,
+                   tree_path_from_winner, tree_propose)
 from .window import StaticWindowPolicy, WindowPolicy
+
+# families whose caches the tree step relocates (pos_map surgery on dense
+# attention rows), as the reference's engine decides
+ATTENTION_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def _accumulate(new_tokens: torch.Tensor, num_new: torch.Tensor,
@@ -130,6 +137,7 @@ class SpecDecodeEngine:
         self.gamma_max = None if gamma_max is None else int(gamma_max)
         self.sync_every = int(sync_every)
         self.step_keys: set = set()
+        self._tree_specs: dict = {}      # (d_max, b_max) → device tables
 
     def step_programs(self) -> int:
         """Distinct step keys built so far (the reference's compiled-program
@@ -169,6 +177,69 @@ class SpecDecodeEngine:
                 pos=state.pos + stop.num_new)
             _accumulate(res.new_tokens, stop.num_new, stop.n_accepted,
                         out_buf, cursor, nacc_buf, nn_buf, row_idx)
+            done.copy_(stop.done)
+            return new_state
+
+        return step
+
+    def _tree_step(self, d_max: int, b_max: int):
+        """The tree-speculation step at the (d_max, b_max) grid bound
+        (reference ``_tree_step``). The round's depth γ ≤ d_max and branch
+        count b ≤ b_max arrive as device scalars that only mask acceptance
+        (``node_valid``), so {γ, b} vary per round on one step. The draft
+        proposes the grid (1 anchor decode + d_max − 1 depth windows), the
+        target verifies it in one ancestor-masked pass, kernels B4a/B4b
+        give the verdict (their plain versions for CPU tensors), and the
+        winning path is relocated onto the linear slots of both caches.
+        Greedy only, attention families only."""
+        if self.temperature > 0.0:
+            raise NotImplementedError(
+                "tree speculation is greedy-only (temperature 0)")
+        if not all(c.arch_type in ATTENTION_FAMILIES
+                   for c in (self.draft_cfg, self.target_cfg)):
+            raise NotImplementedError(
+                "tree speculation needs attention-family draft and target")
+        key = ("tree", d_max, b_max)
+        self.step_keys.add(key)
+        if key not in self._tree_specs:
+            self._tree_specs[key] = TreeSpec(d_max, b_max, self.device)
+        spec = self._tree_specs[key]
+        T = spec.n_entries
+
+        def step(state: SpecDecodeState, active_gamma, branches, row_idx,
+                 out_buf, cursor, nacc_buf, nn_buf, max_new, done, eos_id
+                 ) -> SpecDecodeState:
+            tree_tokens, dcache = tree_propose(
+                self.draft, self.draft_params, state.draft_cache,
+                state.last_token, state.pos, spec)
+            p_logits, tcache = self.target.verify_step(
+                self.target_params, tree_tokens, state.target_cache,
+                state.pos, slot_off=spec.slot_off, pos_off=spec.tree_pos,
+                win_mask=spec.win_mask)
+            node_valid = spec.node_valid(active_gamma, branches)
+            n_acc, winner, bonus = tree_verify_fused(
+                tree_tokens, p_logits, spec.parent_entry, spec.tree_pos,
+                node_valid, spec.win_mask)
+            res = TreeVerifyResult(
+                n_accepted=n_acc, next_token=bonus, winner=winner,
+                path=tree_path_from_winner(winner, spec.parent_entry,
+                                           spec.tree_pos, d_max),
+                accept=None)
+            new_tokens, num_new = tree_committed(tree_tokens, res, d_max)
+            stop = slot_stop_mask(num_new, n_acc, new_tokens, cursor,
+                                  max_new, done, eos_id)
+            # relocate the winning path in BOTH caches (tree slots are not
+            # positions); lifecycle-clamped counts scrub what the budget
+            # or EOS cut
+            for cache in (tcache, dcache):
+                tree_commit_cache(cache, state.pos, res.path,
+                                  stop.n_accepted, T)
+            new_state = SpecDecodeState(
+                draft_cache=dcache, target_cache=tcache,
+                last_token=torch.where(done, state.last_token, bonus),
+                pos=state.pos + stop.num_new)
+            _accumulate(new_tokens, stop.num_new, stop.n_accepted, out_buf,
+                        cursor, nacc_buf, nn_buf, row_idx)
             done.copy_(stop.done)
             return new_state
 

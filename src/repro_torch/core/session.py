@@ -20,8 +20,9 @@ device they run under ``torch.cuda.set_sync_debug_mode("error")``, so a
 host sync slipped into the step raises instead of silently serializing the
 loop. The host syncs once per chunk (:meth:`_sync_and_attribute`).
 
-The transport, pipelined and tree rounds of the reference come with
-ROADMAP items A9 and A10.
+With ``max_branches > 0`` the rounds are tree-speculation rounds (the
+engine's ``_tree_step``; dense KV, greedy, colocated). The transport and
+pipelined rounds of the reference come with ROADMAP item A9.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from ..models.kvcache import BlockAllocator, logical_blocks, reset_slot
 # fused-mode tokens stream edge-ward one control round trip per this many
 # committed tokens (the reference's sim/network.DEFAULT_FUSED_CHUNK)
 from .awc.model import DEFAULT_FUSED_CHUNK as FUSED_FLUSH_TOKENS
-from .engine import DEFAULT_GAMMA_MAX, GenerationStats
+from .engine import ATTENTION_FAMILIES, DEFAULT_GAMMA_MAX, GenerationStats
 from .specdec import SpecDecodeState
 from .window import FeatureSnapshot
 
@@ -92,7 +93,13 @@ class DecodeSession:
     ``kv_pool_blocks`` physical blocks per pool (int, or
                        ``{"draft": n, "target": m}``); None sizes the pool
                        at full dense parity,
-    ``kv_quantize``    int8 per-entry K/V with f32 scales.
+    ``kv_quantize``    int8 per-entry K/V with f32 scales,
+    ``max_branches``   > 0: tree speculation on the (γ_max, max_branches)
+                       grid step, with the window policy's per-round branch
+                       width b ≤ the bound (``WindowDecision.branches``); 0
+                       keeps the linear chain. ``max_branches=1`` is the
+                       degenerate tree: the linear path's tokens. Greedy,
+                       attention families, dense KV.
     """
 
     def __init__(self, engine, capacity: int, max_new_cap: int,
@@ -104,13 +111,30 @@ class DecodeSession:
                  paged: bool = False, kv_block_size: int = 16,
                  kv_pool_blocks=None, kv_quantize: bool = False,
                  transport=None, max_branches: int = 0):
+        # ---- tree speculation (core/tree.py), the reference's gates ------
+        self.max_branches = int(max_branches or 0)
+        if self.max_branches:
+            if mode_policy == "pipeline":
+                raise ValueError(
+                    "tree speculation does not compose with pipeline mode "
+                    "(one in-flight window shape per exchange)")
+            if engine.temperature > 0.0:
+                raise ValueError("tree speculation is greedy-only "
+                                 "(temperature 0)")
+            if not all(c.arch_type in ATTENTION_FAMILIES
+                       for c in (engine.draft_cfg, engine.target_cfg)):
+                raise ValueError("tree speculation needs attention-family "
+                                 "draft and target")
+            if paged:
+                raise ValueError(
+                    "tree speculation needs dense KV slots (the winning-"
+                    "path relocation is pos_map surgery on dense rows)")
+        self._branches_eff = 1
+        self._branches_prev = 1.0
         if transport is not None or mode_policy == "pipeline":
             raise NotImplementedError(
                 "transports and pipelined rounds (the distributed draft/"
                 "target split) come with ROADMAP item A9")
-        if max_branches:
-            raise NotImplementedError(
-                "tree speculation comes with ROADMAP item A10")
         self.engine = engine
         self.device = engine.device
         self.capacity = int(capacity)
@@ -171,6 +195,11 @@ class DecodeSession:
     # ------------------------------------------------------------- geometry
 
     def _cache_len(self, prompt_len: int) -> int:
+        if self.max_branches:
+            # tree rounds write the whole grid past the high-water mark:
+            # anchor + γ_max·b_max entries at slots pos .. pos+T−1
+            return (prompt_len + self.max_new_cap + self.gamma_max
+                    + 1 + self.gamma_max * self.max_branches + 18)
         # 2× the window bound, as the reference sizes every mode (its
         # pipelined rounds write up to γ_max past the half-duplex mark)
         return prompt_len + self.max_new_cap + 2 * self.gamma_max + 18
@@ -227,6 +256,7 @@ class DecodeSession:
         # per-round scalars as preallocated device tensors: indexing them
         # with a host int launches nothing and copies nothing
         self._gamma_tab = torch.arange(self.gamma_max + 1, **i32)
+        self._branch_tab = torch.arange(self.max_branches + 1, **i32)
         self._row_tab = torch.arange(self.sync_every, dtype=torch.long,
                                      device=dev)
         self._eos = torch.full((), self.eos_id, **i32)
@@ -408,6 +438,14 @@ class DecodeSession:
         else:
             fused = dec.mode == "fused"
         gamma_eff = 0 if fused else min(self.gamma_max, max(1, int(dec.gamma)))
+        # tree sessions honor the decision's branch width, clamped to the
+        # bound; a fused round (γ = 0) and linear sessions run b = 1
+        if self.max_branches and not fused:
+            self._branches_eff = min(self.max_branches,
+                                     max(1, int(getattr(dec, "branches", 1))))
+        else:
+            self._branches_eff = 1
+        self._branches_prev = float(self._branches_eff)
         if self.log_gamma:
             self.gamma_seq.append(1 if fused else gamma_eff)
         if fused:
@@ -431,17 +469,23 @@ class DecodeSession:
         if n <= 0 or not self.occupied:
             return 0
         eng = self.engine
-        step = eng._fused_step(self.gamma_max)
+        tree = bool(self.max_branches)
+        step = (eng._tree_step(self.gamma_max, self.max_branches) if tree
+                else eng._fused_step(self.gamma_max))
         chunk_t0 = time.perf_counter()
         chunk_gammas: list[int] = []
         with no_host_sync(self.device):
             for r in range(n):
                 gamma, _fused = self._decide(policy, q_depth)
                 chunk_gammas.append(gamma)
-                self._state = step(self._state, self._gamma_tab[gamma],
-                                   self._row_tab[r], self._out_buf,
-                                   self._cursor, self._nacc, self._nn,
-                                   self._max_new, self._done, self._eos)
+                # a tree round's b rides between γ and the row index
+                shape = ((self._gamma_tab[gamma],
+                          self._branch_tab[self._branches_eff]) if tree
+                         else (self._gamma_tab[gamma],))
+                self._state = step(self._state, *shape, self._row_tab[r],
+                                   self._out_buf, self._cursor, self._nacc,
+                                   self._nn, self._max_new, self._done,
+                                   self._eos)
                 self.iterations += 1
         self._sync_and_attribute(n, chunk_gammas, chunk_t0,
                                  colocated_rtt_ms=eng.rtt_ms)
@@ -517,7 +561,7 @@ class DecodeSession:
             rtt_recent_ms=self.engine.rtt_ms,
             tpot_recent_ms=(sum(t) / len(t)) if t else 50.0,
             gamma_prev=self._gamma_prev,
-            pipe_hit_recent=0.0, branches_prev=1.0)
+            pipe_hit_recent=0.0, branches_prev=self._branches_prev)
 
     # ------------------------------------------------------------ retirement
 

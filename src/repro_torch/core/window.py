@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Callable, Protocol
 
 from .awc.stabilize import StabilizerConfig, WindowStabilizer
+from .tree import tree_expected_accepted
 
 
 @dataclass(frozen=True)
@@ -115,13 +116,34 @@ class AWCWindowPolicy:
     def __init__(self, predictor: Callable[[list[float]], float],
                  stab_cfg: StabilizerConfig | None = None,
                  max_branches: int = 1, bandwidth_gbps: float = 1.0):
-        if int(max_branches) > 1:
-            raise NotImplementedError(
-                "the joint {γ, b} tree decision comes with tree speculation "
-                "(ROADMAP item A10)")
         self.predictor = predictor
         self.stab_cfg = stab_cfg or StabilizerConfig()
         self._stab: dict[str, WindowStabilizer] = {}
+        self.max_branches = max(1, int(max_branches))
+        self.bandwidth_gbps = float(bandwidth_gbps)
+
+    def _pick_branches(self, gamma: int, feats: FeatureSnapshot) -> int:
+        """Joint {γ, b} decision: widen the tree while the marginal
+        expected-accepted gain of one more branch
+        (:func:`repro_torch.core.tree.tree_expected_accepted`) beats its
+        cost — the extra wire bytes of a wider grid (12 B/node at the
+        link's bandwidth) in token-equivalents of the recent TPOT, with a
+        small floor so near-zero gains buy no extra draft work."""
+        if self.max_branches <= 1 or gamma < 1:
+            return 1
+        tpot = max(0.1, feats.tpot_recent_ms)
+        # one extra branch adds γ grid nodes → 12·γ bytes on the uplink
+        ser_ms = 12 * gamma * 8 / (self.bandwidth_gbps * 1e9) * 1e3
+        floor = max(0.02, ser_ms / tpot)
+        b = 1
+        prev = tree_expected_accepted(feats.alpha_recent, gamma, 1)
+        while b < self.max_branches:
+            nxt = tree_expected_accepted(feats.alpha_recent, gamma, b + 1)
+            if nxt - prev <= floor:
+                break
+            prev = nxt
+            b += 1
+        return b
 
     def decide(self, pair_key: str, feats: FeatureSnapshot) -> WindowDecision:
         stab = self._stab.get(pair_key)
@@ -129,7 +151,9 @@ class AWCWindowPolicy:
             stab = self._stab[pair_key] = WindowStabilizer(self.stab_cfg)
         raw = float(self.predictor(feats.as_list()))
         gamma, mode = stab.step(raw)
-        return WindowDecision(gamma, mode, 1)
+        branches = (self._pick_branches(gamma, feats)
+                    if mode == "distributed" else 1)
+        return WindowDecision(gamma, mode, branches)
 
     def gamma_bound(self) -> int:
         return int(self.stab_cfg.clamp_hi)

@@ -7,7 +7,10 @@
 // pos_map. Same arithmetic: f32 scores scaled by 1/sqrt(hd), mask
 // 0 <= pos_map <= q_pos (+ sliding window), online softmax with f32 m/l/acc,
 // P·V in f32, one cast to q's dtype at the end, zeros for a row with no
-// valid slot.
+// valid slot. Tree speculation adds the ancestor bitmap of the reference's
+// `_attend_cached(win_mask=...)` (repro/models/attention.py): inside the
+// region [pos, pos + Wn) of each row the bitmap replaces the position rule
+// (the draft's depth windows and the target's tree verify pass it).
 //
 // What bounds it: the bytes of K and V read (the arithmetic intensity is
 // about T·G flops per byte, far below the card's ridge). What the design
@@ -49,32 +52,37 @@ struct DenseSrc {
 
 template <typename T>
 int dense_launch(const void* q, const void* k, const void* v,
-                 const void* pos_map, const void* q_pos, void* out, int B,
-                 int T_, int Hkv, int G, int hd, int S, int window,
-                 cudaStream_t stream) {
+                 const void* pos_map, const void* q_pos, TreeWindow tw,
+                 void* out, int B, int T_, int Hkv, int G, int hd, int S,
+                 int window, cudaStream_t stream) {
   DenseSrc<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
                   static_cast<const int*>(pos_map), S, Hkv, hd};
   return launch_attend_hd<T>(hd, static_cast<const T*>(q),
-                             static_cast<const int*>(q_pos),
+                             static_cast<const int*>(q_pos), tw,
                              static_cast<T*>(out), B, T_, Hkv, G, S, window,
                              src, stream);
 }
 
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). win_mask
+// (T, Wn) bool and win_base (B,) int32 are null for a plain window.
+// Returns cudaGetLastError() after the launch.
 extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   const void* pos_map, const void* q_pos,
+                                  const void* win_mask, const void* win_base,
                                   void* out, int B, int T, int Hkv, int G,
-                                  int hd, int S, int window, int dtype,
-                                  void* stream) {
+                                  int hd, int S, int window, int Wn,
+                                  int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const repro_torch::TreeWindow tw{
+      static_cast<const unsigned char*>(win_mask),
+      static_cast<const int*>(win_base), Wn};
   if (dtype == 0)
-    return repro_torch::dense_launch<float>(q, k, v, pos_map, q_pos, out, B,
-                                            T, Hkv, G, hd, S, window, st);
+    return repro_torch::dense_launch<float>(q, k, v, pos_map, q_pos, tw, out,
+                                            B, T, Hkv, G, hd, S, window, st);
   if (dtype == 1)
     return repro_torch::dense_launch<__nv_bfloat16>(
-        q, k, v, pos_map, q_pos, out, B, T, Hkv, G, hd, S, window, st);
+        q, k, v, pos_map, q_pos, tw, out, B, T, Hkv, G, hd, S, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,6 +15,13 @@
 // Where a key lives (dense row or paged block), its position and its
 // dequantization scale come from a `Src` policy (DenseSrc / PagedSrc), so
 // the two kernels share every line of the attention arithmetic.
+//
+// Tree windows (dense only): with a (T, Wn) ancestor bitmap `win_mask` and
+// per-row region bases `win_base` (B,), key j with 0 <= j - win_base[b] <
+// Wn is valid for query t iff win_mask[t, j - win_base[b]] — the bitmap
+// REPLACES the position rule there (sibling branches share positions, so
+// pos_map cannot separate them); keys outside the region keep the rule.
+// A null `win_mask` leaves the kernel exactly as without the option.
 
 #pragma once
 
@@ -69,10 +76,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // located through `src`; a key it cannot place (past the cache, unmapped
 // block, past `length`) carries position -1 and is masked like an empty
 // slot. Valid iff 0 <= pos <= q_pos (and pos > q_pos - window when
-// window > 0). A row with no valid key writes zeros.
+// window > 0), or by the tree bitmap inside its region (see above). A row
+// with no valid key writes zeros.
 template <int HD, typename TQ, typename Src>
 __global__ void __launch_bounds__(kThreads)
     attend_kernel(const TQ* __restrict__ q, const int* __restrict__ q_pos,
+                  const unsigned char* __restrict__ win_mask,
+                  const int* __restrict__ win_base, int Wn,
                   TQ* __restrict__ out, int T, int Hkv, int G, int n_keys,
                   int window, float scale, Src src) {
   constexpr int kDpl = HD / 32;  // head-dim columns per lane
@@ -108,6 +118,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int qp[kRowsPerWarp];
+  int tq[kRowsPerWarp];  // the row's query token t
   bool live[kRowsPerWarp];
   float m[kRowsPerWarp];
   float l[kRowsPerWarp];
@@ -116,12 +127,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int row = row0 + warp * kRowsPerWarp + i;
     live[i] = row < n_rows;
-    qp[i] = live[i] ? q_pos[(long long)b * T + row / G] : 0;
+    tq[i] = live[i] ? row / G : 0;
+    qp[i] = live[i] ? q_pos[(long long)b * T + tq[i]] : 0;
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < kDpl; ++c) acc[i][c] = 0.f;
   }
+  const int base = win_mask != nullptr ? win_base[b] : 0;
 
   for (int s0 = 0; s0 < n_keys; s0 += kTile) {
     __syncthreads();  // q_s written / previous tile consumed
@@ -159,6 +172,9 @@ __global__ void __launch_bounds__(kThreads)
 
     // scores of this lane's key against the warp's rows
     const int kp = kpos_s[lane];
+    const int rel = s0 + lane - base;  // offset into the tree region
+    const bool in_win = win_mask != nullptr && s0 + lane < n_keys &&
+                        rel >= 0 && rel < Wn;
     float sc[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) sc[i] = 0.f;
@@ -174,8 +190,13 @@ __global__ void __launch_bounds__(kThreads)
     float p[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      bool valid = live[i] && kp >= 0 && kp <= qp[i];
-      if (window > 0) valid = valid && kp > qp[i] - window;
+      bool valid;
+      if (in_win) {
+        valid = live[i] && win_mask[(long long)tq[i] * Wn + rel] != 0;
+      } else {
+        valid = live[i] && kp >= 0 && kp <= qp[i];
+        if (window > 0) valid = valid && kp > qp[i] - window;
+      }
       const float s = valid ? sc[i] * scale : kNegInf;
       const float m_new = fmaxf(m[i], warp_max(s));
       const float alpha = expf(m[i] - m_new);
@@ -216,29 +237,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The optional tree window (win_mask, win_base, Wn; nullptr = none).
+struct TreeWindow {
+  const unsigned char* mask;  // (T, Wn) bool
+  const int* base;            // (B,) region start per row
+  int Wn;
+};
+
 template <int HD, typename TQ, typename Src>
-int launch_attend(const TQ* q, const int* q_pos, TQ* out, int B, int T,
-                  int Hkv, int G, int n_keys, int window, const Src& src,
-                  cudaStream_t stream) {
+int launch_attend(const TQ* q, const int* q_pos, TreeWindow tw, TQ* out,
+                  int B, int T, int Hkv, int G, int n_keys, int window,
+                  const Src& src, cudaStream_t stream) {
   const dim3 grid((T * G + kRows - 1) / kRows, Hkv, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   attend_kernel<HD, TQ, Src><<<grid, kThreads, 0, stream>>>(
-      q, q_pos, out, T, Hkv, G, n_keys, window, scale, src);
+      q, q_pos, tw.mask, tw.base, tw.Wn, out, T, Hkv, G, n_keys, window,
+      scale, src);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename Src>
-int launch_attend_hd(int hd, const TQ* q, const int* q_pos, TQ* out, int B,
-                     int T, int Hkv, int G, int n_keys, int window,
-                     const Src& src, cudaStream_t stream) {
+int launch_attend_hd(int hd, const TQ* q, const int* q_pos, TreeWindow tw,
+                     TQ* out, int B, int T, int Hkv, int G, int n_keys,
+                     int window, const Src& src, cudaStream_t stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || G <= 0) return 0;  // nothing to do
   switch (hd) {
     case 64:
-      return launch_attend<64>(q, q_pos, out, B, T, Hkv, G, n_keys, window,
-                               src, stream);
+      return launch_attend<64>(q, q_pos, tw, out, B, T, Hkv, G, n_keys,
+                               window, src, stream);
     case 128:
-      return launch_attend<128>(q, q_pos, out, B, T, Hkv, G, n_keys, window,
-                                src, stream);
+      return launch_attend<128>(q, q_pos, tw, out, B, T, Hkv, G, n_keys,
+                                window, src, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

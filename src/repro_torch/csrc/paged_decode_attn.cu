@@ -77,6 +77,7 @@ int paged_launch(const void* q, const void* k, const void* v,
   const int n_keys = length < span ? length : span;
   return launch_attend_hd<TQ>(hd, static_cast<const TQ*>(q),
                               static_cast<const int*>(q_pos),
+                              TreeWindow{nullptr, nullptr, 0},
                               static_cast<TQ*>(out), B, T, Hkv, G, n_keys,
                               window, src, stream);
 }

@@ -3,7 +3,9 @@
 - decode_attn — GQA flash-decode over a dense KV cache (replaces the Pallas
   kernel ``repro/kernels/decode_attn/decode_attn.py``),
 - decode_attn.paged — the same over a paged block pool (replaces
-  ``repro/kernels/decode_attn/paged.py``).
+  ``repro/kernels/decode_attn/paged.py``),
+- verify.tree — greedy tree verify: the per-entry target argmax and the
+  longest-accepted-root-path rule (replace ``repro/kernels/verify/tree.py``).
 
 The CUDA sources live in ``repro_torch/csrc``. They are compiled at first
 use with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
@@ -40,7 +42,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launch counts per kernel wrapper; read and reset by callers that need to
 # show a path ran through the kernels (chip_smoke.py)
-LAUNCHES: dict[str, int] = {"decode_attn": 0, "paged_decode_attn": 0}
+LAUNCHES: dict[str, int] = {"decode_attn": 0, "paged_decode_attn": 0,
+                            "tree_argmax": 0, "tree_accept": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -144,13 +147,18 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, pos_map, q_pos, out, B, T, Hkv, G, hd, S, window, dtype,
-    # stream
-    "decode_attn_launch": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, pos_map, q_pos, win_mask, win_base, out, B, T, Hkv, G, hd,
+    # S, window, Wn, dtype, stream
+    "decode_attn_launch": [_P] * 8 + [_I] * 9 + [_P],
     # q, k_pool, v_pool, k_scale, v_scale, pos_map, block_table, q_pos,
     # out, B, T, Hkv, G, hd, bs, n_log, length, window, q_dtype, kv_int8,
     # stream
     "paged_decode_attn_launch": [_P] * 9 + [_I] * 11 + [_P],
+    # logits, out, rows, V, stream
+    "tree_argmax_launch": [_P] * 2 + [_I] * 2 + [_P],
+    # tok, tgt, parent, tpos, valid, mask, n_acc, winner, bonus, B, T,
+    # stream
+    "tree_accept_launch": [_P] * 9 + [_I] * 2 + [_P],
 }
 
 

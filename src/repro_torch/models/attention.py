@@ -80,7 +80,11 @@ def attention_decode(x_new: torch.Tensor, p: dict, cfg: ModelConfig,
                      k_buf: torch.Tensor, v_buf: torch.Tensor,
                      pm_buf: torch.Tensor, pos: torch.Tensor, ring: bool,
                      window: int = 0,
-                     angles: Optional[tuple] = None) -> torch.Tensor:
+                     angles: Optional[tuple] = None,
+                     slot_off: Optional[torch.Tensor] = None,
+                     pos_off: Optional[torch.Tensor] = None,
+                     win_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Decode/verify step over a dense layer cache: write the (B, T)
     window into the cache (in place; buffers carry the sink row B) and
     attend over the valid slots through kernel B1.
@@ -89,16 +93,28 @@ def attention_decode(x_new: torch.Tensor, p: dict, cfg: ModelConfig,
     Validity per slot s for query t: 0 ≤ pos_map[s] ≤ pos+t, and
     pos_map[s] > pos+t − window when sliding. Stale speculative entries
     (pos_map beyond the committed position) are excluded automatically.
+
+    Tree speculation (``slot_off``/``pos_off``/``win_mask``): token t
+    writes slot ``pos + slot_off[t]`` at position ``pos + pos_off[t]``
+    (RoPE phase and pos_map value), and inside the region ``[pos, pos +
+    win_mask.shape[1])`` the validity of slot ``pos + j`` for query t is
+    ``win_mask[t, j]`` instead of the position rule (siblings tie on
+    position; the ancestor bitmap separates them).
     Returns the attention output (B, T, D)."""
     B, T, _ = x_new.shape
-    abs_pos = pos[:, None] + torch.arange(T, device=pos.device,
-                                          dtype=pos.dtype)[None, :]
+    off = (torch.arange(T, device=pos.device, dtype=pos.dtype)
+           if pos_off is None else pos_off)
+    abs_pos = pos[:, None] + off[None, :]
     q, k_new, v_new = _qkv(x_new, p, cfg, abs_pos, angles)
-    update_layer_cache(k_buf, v_buf, pm_buf, k_new, v_new, pos, ring)
+    update_layer_cache(k_buf, v_buf, pm_buf, k_new, v_new, pos, ring,
+                       slot_off=slot_off, pos_off=pos_off)
     Hkv, hd = k_buf.shape[2], k_buf.shape[3]
     qg = q.reshape(B, T, Hkv, -1, hd)
     ctx = decode_attn_call(qg, k_buf[:B], v_buf[:B], pm_buf[:B],
-                           abs_pos.to(torch.int32), window)
+                           abs_pos.to(torch.int32), window,
+                           win_mask=win_mask,
+                           win_base=None if win_mask is None
+                           else pos.to(torch.int32))
     return _out_proj(ctx, p["wo"])
 
 

@@ -84,19 +84,30 @@ def init_attn_cache(n_layers: int, batch: int, slots: int, n_kv: int,
 def update_layer_cache(k_buf: torch.Tensor, v_buf: torch.Tensor,
                        pm_buf: torch.Tensor, k_new: torch.Tensor,
                        v_new: torch.Tensor, pos: torch.Tensor,
-                       ring: bool) -> None:
+                       ring: bool, slot_off: Optional[torch.Tensor] = None,
+                       pos_off: Optional[torch.Tensor] = None) -> None:
     """Write a (B, T, Hkv, hd) window into one layer's cache (sink row
     included: k/v (B+1, S, Hkv, hd), pos_map (B+1, S)) at per-sequence
     positions ``pos`` (B,), in place.
 
     Non-ring writes past the cache edge (``pos + t >= S``) are dropped into
-    the sink row; ring writes wrap (slot = position % S)."""
+    the sink row; ring writes wrap (slot = position % S).
+
+    ``slot_off``/``pos_off`` ((T,) int32, non-ring only) decouple the write
+    slot ``pos + slot_off[t]`` from the stored position ``pos +
+    pos_off[t]``: tree speculation puts sibling branches in distinct slots
+    that share a position. None keeps slot == position == ``pos + t``."""
     B, T = k_new.shape[0], k_new.shape[1]
     S = k_buf.shape[1]
     dev = pos.device
-    abs_pos = pos[:, None] + torch.arange(T, device=dev,
-                                          dtype=pos.dtype)[None, :]
-    slot = (abs_pos % S if ring else abs_pos).long()
+    if slot_off is not None or pos_off is not None:
+        assert not ring, "tree slot/pos decoupling needs a non-ring cache"
+    s_off = (torch.arange(T, device=dev, dtype=pos.dtype)
+             if slot_off is None else slot_off)
+    p_off = s_off if pos_off is None else pos_off
+    abs_pos = pos[:, None] + p_off[None, :]
+    write_pos = pos[:, None] + s_off[None, :]
+    slot = (write_pos % S if ring else write_pos).long()
     keep = (slot >= 0) & (slot < S)
     rows = torch.arange(B, device=dev)[:, None].expand(B, T)
     rows = torch.where(keep, rows, B)                      # B = sink row
@@ -104,6 +115,47 @@ def update_layer_cache(k_buf: torch.Tensor, v_buf: torch.Tensor,
     k_buf[rows, slot] = k_new.to(k_buf.dtype)
     v_buf[rows, slot] = v_new.to(v_buf.dtype)
     pm_buf[rows, slot] = abs_pos.to(torch.int32)
+
+
+def tree_commit_cache(cache: AttnCache, pos: torch.Tensor,
+                      path: torch.Tensor, n_acc: torch.Tensor,
+                      n_entries: int) -> AttnCache:
+    """Relocate a verified tree's winning path onto the linear slots and
+    scrub the losers, in place, all layers at once (dense non-ring caches).
+
+    Tree entry ``e`` lives at slot ``pos + e`` with position ``pos +
+    tree_pos[e]``; accepted depth ``d < n_acc`` of the winning path (entry
+    ``path[:, d]``) moves to slot ``pos + 1 + d`` with pos_map ``pos + 1 +
+    d``. The path's K/V/pos_map are gathered BEFORE any write (sources and
+    destinations overlap). Every other slot of ``(pos, pos + n_entries)``
+    (the anchor slot excluded) gets pos_map −1; writes at ``d >= n_acc``
+    (and past the cache) drop into the sink row; a source the proposer
+    never wrote (pos_map < 0, the draft's tail hole) stays a hole. Done rows
+    pass ``n_acc == 0`` and only scrub."""
+    assert not cache.ring, "tree speculation needs a non-ring dense cache"
+    B, S = cache.batch, cache.slots
+    d_max = path.shape[1]
+    dev = pos.device
+    pos_l = pos.long()
+    d_idx = torch.arange(d_max, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None].expand(B, d_max)
+    src = (pos_l[:, None] + path.long()).clamp(0, S - 1)      # (B, d_max)
+    kg = cache.k_buf[:, rows, src]                  # (L, B, d_max, Hkv, hd)
+    vg = cache.v_buf[:, rows, src]
+    pg = cache.pm_buf[:, rows, src]                 # (L, B, d_max)
+    s_idx = torch.arange(S, device=dev)[None, :]
+    region = (s_idx > pos_l[:, None]) & (s_idx < pos_l[:, None] + n_entries)
+    cache.pm_buf[:, :B].masked_fill_(region[None], -1)
+    dest = pos_l[:, None] + 1 + d_idx                          # (B, d_max)
+    keep = (d_idx < n_acc[:, None]) & (dest < S)
+    drow = torch.where(keep, rows, B)                          # B = sink row
+    dest = torch.where(keep, dest, 0)
+    cache.k_buf[:, drow, dest] = kg
+    cache.v_buf[:, drow, dest] = vg
+    cache.pm_buf[:, drow, dest] = torch.where(
+        pg >= 0, (pos_l[:, None] + 1 + d_idx).to(torch.int32)[None],
+        torch.full_like(pg, -1))
+    return cache
 
 
 # --------------------------------------------------------------------------

@@ -6,6 +6,9 @@ The API mirrors the reference ``repro/models/model.py``::
     logits, cache = model.prefill(params, tokens, slots=N)
     logits, cache = model.decode_step(params, token, cache, pos)   # T = 1
     logits, cache = model.verify_step(params, window, cache, pos)  # T = γ+1
+    logits, cache = model.verify_step(params, tree_tokens, cache, pos,
+                                      slot_off=..., pos_off=...,
+                                      win_mask=...)               # a tree
 
 Parameters are a nested dict of layer-stacked tensors with the reference's
 names and layout (``layers.attn.wq`` is (L, D, H, hd), …), so
@@ -15,6 +18,8 @@ place and returned for the reference's calling convention.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -121,22 +126,37 @@ class Model:
         return logits[:, -1, :], cache
 
     def verify_step(self, params, window_tokens: torch.Tensor, cache,
-                    pos: torch.Tensor, window: int = 0):
-        """window_tokens: (B, T). Returns (logits (B, T, V), cache)."""
-        return self._window_step(params, window_tokens, cache, pos, window)
+                    pos: torch.Tensor, window: int = 0,
+                    slot_off: Optional[torch.Tensor] = None,
+                    pos_off: Optional[torch.Tensor] = None,
+                    win_mask: Optional[torch.Tensor] = None):
+        """window_tokens: (B, T). Returns (logits (B, T, V), cache).
+        ``slot_off``/``pos_off``/``win_mask`` — the tree-speculation window
+        layout (dense caches only; see
+        :func:`repro_torch.models.attention.attention_decode`)."""
+        return self._window_step(params, window_tokens, cache, pos, window,
+                                 slot_off, pos_off, win_mask)
 
     def _window_step(self, params, tokens: torch.Tensor, cache,
-                     pos: torch.Tensor, window: int = 0):
+                     pos: torch.Tensor, window: int = 0,
+                     slot_off: Optional[torch.Tensor] = None,
+                     pos_off: Optional[torch.Tensor] = None,
+                     win_mask: Optional[torch.Tensor] = None):
         cfg = self.cfg
         T = tokens.shape[1]
         h = params["embed"][tokens.long()]
         w = window or 0
-        abs_pos = pos[:, None] + torch.arange(T, device=pos.device,
-                                              dtype=pos.dtype)[None, :]
+        paged = isinstance(cache, PagedAttnCache)
+        tree = (slot_off, pos_off, win_mask)
+        if paged and any(a is not None for a in tree):
+            raise NotImplementedError(
+                "tree-speculation windows need a dense AttnCache")
+        off = (torch.arange(T, device=pos.device, dtype=pos.dtype)
+               if pos_off is None else pos_off)
+        abs_pos = pos[:, None] + off[None, :]
         # one rope table per step, shared by every layer's q and k
         angles = rope_angles(abs_pos, cfg.head_dim, cfg.rope_theta)
         layers = params["layers"]
-        paged = isinstance(cache, PagedAttnCache)
         for l in range(cfg.n_layers):
             lp = _layer(layers, l)
             x = rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -150,7 +170,7 @@ class Model:
             else:
                 a = attention_decode(x, lp["attn"], cfg, cache.k_buf[l],
                                      cache.v_buf[l], cache.pm_buf[l], pos,
-                                     cache.ring, w, angles=angles)
+                                     cache.ring, w, angles, *tree)
             h = self._mlp(lp, h + a)
         return self._logits(params, h), cache
 

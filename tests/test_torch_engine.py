@@ -366,9 +366,9 @@ def test_unported_features_name_their_roadmap_items(pair):
     with pytest.raises(NotImplementedError, match="A9"):
         DecodeSession(teng, capacity=1, max_new_cap=4,
                       mode_policy="pipeline")
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_window_policy("awc", max_branches=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        DecodeSession(teng, capacity=1, max_new_cap=4, max_branches=2)
+    # tree speculation (A10) is ported: its policy and session construct
+    assert make_window_policy("awc", max_branches=2).max_branches == 2
+    sess = DecodeSession(teng, capacity=1, max_new_cap=4, max_branches=2)
+    assert sess.max_branches == 2
     with pytest.raises(NotImplementedError, match="A9"):
         teng.generate(np.zeros((1, 4), np.int32), 4, transport=object())
