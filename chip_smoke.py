@@ -9,11 +9,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 2. build    — the hand-written CUDA kernels (``src/repro_torch/csrc``) built
               with nvcc for sm_90a;
 3. kernels  — B1 (dense), B2 (paged, fp and int8), B1 with the tree
-              ancestor mask, B4a (tree argmax) and B4b (tree accept) against
-              their plain PyTorch versions at the slices' shapes (B4a/B4b
-              exactly), then timed against the plain version, a library
-              yardstick the port never calls (``scaled_dot_product_attention``,
-              ``torch.argmax``) and the bound;
+              ancestor mask, B4a (tree argmax), B4b (tree accept), B3a
+              (sampled gather/residual mass) and B3b (inverse-CDF sample)
+              against their plain PyTorch versions at the slices' shapes
+              (B4 exactly; B3 exactly up to float32 cumsum rounding at a
+              CDF step, those cases counted), the sampled verify's first
+              committed token against p_0 (chi-square), then timed against
+              the plain version, a library yardstick the port never calls
+              (``scaled_dot_product_attention``, ``torch.argmax``) and the
+              bound;
 4. exact    — float32, full widths at 2 layers each: the server's greedy
               tokens on dense KV == on paged KV (pool at 60 % of dense
               parity) == a target-only greedy decode, and a self-speculation
@@ -22,7 +26,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               tree session (γ_max 8, b_max 3, static γ 4 × b 3) == a linear
               session == the target-only greedy decode, with acceptance
               strictly between 0 and 1, and a max_branches=1 tree session ==
-              the linear one bit for bit (tokens and acceptance bits);
+              the linear one bit for bit (tokens and acceptance bits); at
+              temperature 1.0, self-speculation accepts ≥ 0.99, the noised
+              draft strictly between 0 and 1, and a seed fixes the tokens;
 5. serve    — the full qwen3-14b target ← qwen2.5-3b draft pair in bf16
               through ``repro_torch.launch.serve``: dense static γ=4, dense
               AWC, paged static γ=4, each checked for complete in-range
@@ -32,8 +38,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               (γ_max 8, b_max 3; static γ 4 × b 3 and AWC with
               max_branches=3), checked for complete outputs, B1 launches =
               rounds·(γ_max·L_draft + L_target) + waves·(L_draft +
-              L_target), B4a = B4b = rounds, and one step key. The decode
-              rounds of every chunk run under
+              L_target), B4a = B4b = rounds, and one step key; the dense
+              and paged static runs again at ``--temperature 1.0`` with
+              the same launch counts, their greedy twins' step keys and
+              B3a = B3b = rounds (every greedy and tree run: B3 = 0). The
+              decode rounds of every chunk run under
               ``torch.cuda.set_sync_debug_mode("error")``.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, the card's
@@ -60,6 +69,10 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
 B_MAX = 3                      # tree branch bound of the tree runs
 TREE_NOISE = 0.05              # draft = target + N(0, (0.05·std)²) per tensor
+SAMPLED_T = 1.0                # temperature of the sampled runs
+TAIL_CASE = "u = r = 1 - 2^-24"   # planted: thresholds at the last CDF step
+FLAG_SHARE = 0.02              # B3b rows allowed at a CDF step, of all rows
+FLAG_SHARE_INNER = 0.01        # … and of the rows outside TAIL_CASE
 
 
 def emit(obj) -> None:
@@ -299,22 +312,27 @@ def phase_kernels(torch):
         bound["paged_decode_attn"] = max(
             (kv_bytes + io_bytes + pmp.numel() * 4 + table.numel() * 4)
             / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        lib_ms = cuda_ms(torch, sdpa)
+        # device times by CUDA-graph replay, as for B3/B4; eager_ms is the
+        # wrapper in an eager loop (host speed shows in it)
+        lib_ms = graph_ms(torch, sdpa)
+        b1_call = lambda: decode_attn_call(q, k, v, pm, qp)
+        b2_call = lambda: paged_decode_attention(*pargs)
         times[label] = {
             "shape": {"B": B, "T": T, "Hkv": Hkv, "G": G, "hd": hd,
                       "S": S_t, "dtype": "bfloat16"},
             "decode_attn": {
-                "ms": cuda_ms(torch, lambda: decode_attn_call(q, k, v, pm,
-                                                              qp)),
-                "plain_ms": cuda_ms(torch, lambda: decode_attention_grouped(
+                "ms": graph_ms(torch, b1_call),
+                "eager_ms": cuda_ms(torch, b1_call),
+                "plain_ms": graph_ms(torch, lambda: decode_attention_grouped(
                     q, k, v, pm, qp), iters=20),
                 "library_ms": lib_ms, "bound_ms": bound["decode_attn"],
                 "bound_by": "bytes"},
             "paged_decode_attn": {
-                "ms": cuda_ms(torch, lambda: paged_decode_attention(*pargs)),
-                "plain_ms": cuda_ms(torch, lambda:
-                                    paged_decode_attention_plain(*pargs),
-                                    iters=20),
+                "ms": graph_ms(torch, b2_call),
+                "eager_ms": cuda_ms(torch, b2_call),
+                "plain_ms": graph_ms(torch, lambda:
+                                     paged_decode_attention_plain(*pargs),
+                                     iters=20),
                 "library_ms": lib_ms,
                 "bound_ms": bound["paged_decode_attn"], "bound_by": "bytes"},
         }
@@ -323,6 +341,11 @@ def phase_kernels(torch):
     times["tree"] = time_tree_kernels(torch, gen, dev, geoms)
     emit({"phase": "tree_kernel_times", "card": smi_line(),
           **times["tree"]})
+    err.update(check_sampled_kernels(torch, gen, dev))
+    check_sampled_distribution(torch, dev)
+    times["sampled"] = time_sampled_kernels(torch, gen, dev)
+    emit({"phase": "sampled_kernel_times", "card": smi_line(),
+          **times["sampled"]})
     return err, times
 
 
@@ -541,6 +564,295 @@ def time_tree_kernels(torch, gen, dev, geoms) -> dict:
             "tree_accept": accept}
 
 
+# ------------------------------------------------------ sampled verify (B3)
+
+def sampled_window(torch, gen, B, G, V, dtype, dev, misalign=False):
+    """p (B, G+1, V), q (B, G, V): softmaxes of 2·N(0, 1) logits, q == p on
+    rows 0 and 1 (the accept path), draft tokens drawn from q, all cast to
+    ``dtype``; ``misalign`` shifts both into buffers one element off a
+    16-byte boundary."""
+    from repro_torch.core.specdec import sample_from_probs
+    p = torch.softmax(2 * torch.randn((B, G + 1, V), generator=gen,
+                                      device=dev), -1)
+    q = torch.softmax(2 * torch.randn((B, G, V), generator=gen, device=dev),
+                      -1)
+    q[:2] = p[:2, :G]
+    toks = sample_from_probs(q, gen)
+    p, q = p.to(dtype), q.to(dtype)
+    if misalign:
+        def shift(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            y = buf[1:].view(x.shape)
+            y.copy_(x)
+            return y
+        p, q = shift(p), shift(q)
+    return toks, p, q
+
+
+def plant_case(torch, case, toks, p, q, u, r):
+    """Edge cases on rows 2 and 3 (rows 0 and 1 keep q == p)."""
+    one_less = 1.0 - 2.0 ** -24
+    rows = [2, 3]
+    if case == "zero-mass residual":
+        # halve p at the draft token and nowhere else raise it: the
+        # position-0 residual is empty, so the row samples p (use_p)
+        for b in rows:
+            q[b, 0] = p[b, 0]
+            p[b, 0, toks[b, 0]] *= 0.5
+        u[rows, 0] = 0.9
+    elif case == "all-zero p row":
+        p[rows, 0] = 0.0
+    elif case == "u = r = 0":
+        u.zero_()
+        r.zero_()
+    elif case == TAIL_CASE:
+        u.fill_(one_less)
+        r.fill_(one_less)
+
+
+def bracket_ok(np, dist64, thresh, a, b, tol=1e-5) -> bool:
+    """Both tokens are a crossing of ``thresh`` on the float64 CDF within
+    ``tol`` (cdf[t−1] ≤ thresh < cdf[t], each side loosened by tol): the
+    threshold lies at a CDF step, where float32 cumsum orders disagree."""
+    cdf = np.cumsum(dist64)
+    for t in (a, b):
+        lo = cdf[t - 1] if t > 0 else 0.0
+        if not (lo - tol <= thresh <= cdf[t] + tol):
+            return False
+    return True
+
+
+def check_sampled_kernels(torch, gen, dev) -> dict:
+    """B3a and B3b against their plain versions on the same card tensors,
+    and the glue on the card (kernels) against the glue on CPU copies
+    (plain versions), at (B 4, Γ 8) and V 151936, 50304 and a misaligned
+    1001, in float32 and bfloat16, over planted cases and every active γ.
+    p_at/q_at, accept counts and masks exact; the mass within 1e-6 +
+    1e-5·mass (float32 sums in another order); tokens exact except where
+    the threshold lies at a CDF step (a float64 CDF brackets it for both
+    tokens within 1e-5). Such rows are counted, and the run fails if they
+    exceed FLAG_SHARE of a check's rows, or FLAG_SHARE_INNER of its rows
+    outside the planted tail case (r = 1 − 2⁻²⁴ puts every threshold
+    within 2⁻²⁴ of the row's last CDF step). Returns the mass error and,
+    for B3b, the largest |kernel token − plain token| with the counts."""
+    import numpy as np
+    from repro_torch.kernels.verify import (cdf_sample, cdf_sample_plain,
+                                            gather_reduce,
+                                            gather_reduce_plain,
+                                            verify_window_fused)
+    from repro_torch.kernels.verify.ops import select_rows
+    B, G = 4, GAMMA_MAX
+    cases = ["random", "zero-mass residual", "all-zero p row", "u = r = 0",
+             TAIL_CASE]
+    mass_err, flagged = 0.0, []
+    rows = {"B3b": {"all": 0, "inner": 0}, "glue": {"all": 0, "inner": 0}}
+    for V, misalign in ((151936, False), (50304, False), (1001, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in cases + [f"ag={a}" for a in range(G + 1)]:
+                toks, p, q = sampled_window(torch, gen, B, G, V, dtype, dev,
+                                            misalign)
+                u = torch.rand((B, G), generator=gen, device=dev)
+                r = torch.rand((B,), generator=gen, device=dev)
+                plant_case(torch, case, toks, p, q, u, r)
+                ag = (torch.full((B,), int(case[3:]), dtype=torch.int32,
+                                 device=dev) if case.startswith("ag=")
+                      else None)
+                label = f"V{V} {str(dtype)[6:]} {case}"
+                # B3a
+                got = gather_reduce(toks, p, q)
+                want = gather_reduce_plain(toks, p, q)
+                torch.cuda.synchronize()
+                for a_, w_, name in zip(got[:2], want[:2], ("p_at", "q_at")):
+                    if not torch.equal(a_, w_):
+                        fail(f"B3a {label}: {name} differs from plain")
+                d = (got[2] - want[2]).abs()
+                if (d > 1e-6 + 1e-5 * want[2].abs()).any():
+                    fail(f"B3a {label}: mass off by {float(d.max())}")
+                mass_err = max(mass_err, float(d.max()))
+                # B3b on identical inputs
+                sel = select_rows(*want, u, r, ag)
+                args = (sel.jrow, sel.qrow, sel.use_p, p, q, sel.thresh)
+                tk, tp = cdf_sample(*args), cdf_sample_plain(*args)
+                # the glue: card (kernels) vs CPU copies (plain versions)
+                cpu = lambda x: None if x is None else x.cpu()
+                gk = verify_window_fused(toks, q, p, u, r, ag)
+                gp = verify_window_fused(*map(cpu, (toks, q, p, u, r, ag)))
+                for tag in rows:
+                    rows[tag]["all"] += B
+                    rows[tag]["inner"] += B * (case != TAIL_CASE)
+                if not (torch.equal(gk.n_accepted.cpu(), gp.n_accepted)
+                        and torch.equal(gk.accept_mask.cpu(),
+                                        gp.accept_mask)):
+                    fail(f"glue {label}: accept counts/masks differ")
+                sel_c = select_rows(*gather_reduce_plain(*map(
+                    cpu, (toks, p, q))), *map(cpu, (u, r, ag)))
+                for tag, a_t, b_t, s_ in (
+                        ("B3b", tk.cpu(), tp.cpu(), sel),
+                        ("glue", gk.next_token.cpu(), gp.next_token, sel_c)):
+                    for b in torch.nonzero(a_t != b_t).flatten().tolist():
+                        jr, qr = int(s_.jrow[b]), int(s_.qrow[b])
+                        p_j = p[b, jr].double().cpu().numpy()
+                        dist = p_j if int(s_.use_p[b]) else np.maximum(
+                            p_j - q[b, qr].double().cpu().numpy(), 0.0)
+                        th = float(s_.thresh[b])
+                        a_i, b_i = int(a_t[b]), int(b_t[b])
+                        if not bracket_ok(np, dist, th, a_i, b_i):
+                            fail(f"{tag} {label} row {b}: token {a_i} vs "
+                                 f"plain {b_i}, threshold {th} not at a "
+                                 "CDF step")
+                        # the CDF step the two tokens disagree about
+                        step = float(np.cumsum(dist)[min(a_i, b_i)])
+                        flagged.append({"check": tag, "case": label,
+                                        "tail": case == TAIL_CASE,
+                                        "row": b, "kernel": a_i,
+                                        "plain": b_i, "thresh": th,
+                                        "cdf_gap": abs(th - step)})
+                if case == "all-zero p row":
+                    if not (gk.next_token[2:] == V - 1).all():
+                        fail(f"glue {label}: an all-zero row is not V - 1")
+    counts = {}
+    for tag, n in rows.items():
+        mine = [f for f in flagged if f["check"] == tag]
+        inner = [f for f in mine if not f["tail"]]
+        counts[tag] = {"rows": n["all"], "flagged": len(mine),
+                       "rows_outside_tail": n["inner"],
+                       "flagged_outside_tail": len(inner)}
+        if (len(mine) > FLAG_SHARE * n["all"]
+                or len(inner) > FLAG_SHARE_INNER * n["inner"]):
+            fail(f"{tag}: {len(mine)} of {n['all']} rows flagged at a CDF "
+                 f"step ({len(inner)} of {n['inner']} outside the tail "
+                 f"case), over the {FLAG_SHARE:.0%} / {FLAG_SHARE_INNER:.0%} "
+                 "limits")
+    token_err = max((abs(f["kernel"] - f["plain"]) for f in flagged),
+                    default=0)
+    cdf_gap = max((f["cdf_gap"] for f in flagged), default=0.0)
+    emit({"phase": "kernels", "check": "sampled kernels == plain",
+          "rows_flagged": counts, "cases": cases + ["ag=0..8"],
+          "vocab": [151936, 50304, 1001], "dtypes": ["float32", "bfloat16"],
+          "gather_reduce_mass_max_abs_err": mass_err,
+          "cdf_sample_token_max_abs_err": token_err,
+          "flagged_max_cdf_gap": cdf_gap, "flagged": flagged[:20],
+          "tolerance": {"p_at/q_at/accept": "exact",
+                        "mass": "1e-6 + 1e-5*mass",
+                        "token": "exact unless both bracket the threshold "
+                                 "on a float64 CDF within 1e-5",
+                        "flagged_share": [FLAG_SHARE, FLAG_SHARE_INNER]}})
+    return {"gather_reduce": mass_err, "cdf_sample": token_err,
+            "cdf_sample_flagged": dict(counts, max_cdf_gap=cdf_gap)}
+
+
+def check_sampled_distribution(torch, dev) -> None:
+    """The card path of the sampled verify, 2^16 rows of one fixed (p, q)
+    window at V 16, Γ 4: the first committed token (draft token 0 if
+    accepted, else the resample) must follow p_0 (chi-square p > 1e-4 at a
+    fixed seed)."""
+    from scipy import stats
+    from repro_torch.core.specdec import sample_from_probs
+    from repro_torch.kernels.verify import verify_window_fused
+    N, G, V = 1 << 16, 4, 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    p1 = torch.softmax(torch.randn((G + 1, V), generator=gen, device=dev),
+                       -1)
+    q1 = torch.softmax(torch.randn((G, V), generator=gen, device=dev), -1)
+    p = p1.expand(N, G + 1, V).contiguous()
+    q = q1.expand(N, G, V).contiguous()
+    toks = sample_from_probs(q, gen)
+    u = torch.rand((N, G), generator=gen, device=dev)
+    r = torch.rand((N,), generator=gen, device=dev)
+    out = verify_window_fused(toks, q, p, u, r)
+    first = torch.where(out.n_accepted > 0, toks[:, 0], out.next_token)
+    counts = torch.bincount(first.long(), minlength=V).cpu().numpy()
+    expect = p1[0].double().cpu().numpy() * N
+    pval = float(stats.chisquare(counts, expect * counts.sum()
+                                 / expect.sum()).pvalue)
+    info = {"phase": "kernels", "check": "sampled first-token marginal",
+            "rows": N, "V": V, "gamma": G, "chi2_pvalue": pval,
+            "acceptance_pos0": float((out.n_accepted > 0).float().mean())}
+    emit(info)
+    if not pval > 1e-4:
+        fail(f"first committed token is not distributed as p_0 "
+             f"(chi-square p = {pval})")
+
+
+def cycle(fns):
+    """One callable that calls ``fns`` in turn: timing it over copies of the
+    inputs larger together than the 50 MB L2 finds each launch's inputs
+    evicted (cold), as a fresh round's probabilities may be."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+    return call
+
+
+def time_sampled_kernels(torch, gen, dev) -> dict:
+    """B3a and B3b at the main path's shape (B 4, Γ 8, V 151936, float32
+    probabilities, one round's typical selection): device time by CUDA-
+    graph replay over three copies of the inputs (123 MB, so L2-cold:
+    ``ms``) and over one copy (L2-warm: ``warm_ms``), beside the eager
+    wrapper (``eager_ms``), the plain version (graph, cold) and the bound;
+    no single PyTorch call computes either function (``library_ms``
+    null)."""
+    from repro_torch.kernels.verify import (cdf_sample, cdf_sample_plain,
+                                            gather_reduce,
+                                            gather_reduce_plain,
+                                            verify_window_fused)
+    from repro_torch.kernels.verify.ops import select_rows
+    B, G, V = 4, GAMMA_MAX, 151936
+    copies = []
+    for _ in range(3):
+        toks, p, q = sampled_window(torch, gen, B, G, V, torch.float32, dev)
+        u = torch.rand((B, G), generator=gen, device=dev)
+        r = torch.rand((B,), generator=gen, device=dev)
+        sel = select_rows(*gather_reduce(toks, p, q), u, r)
+        copies.append((toks, p, q, u, r, sel))
+    toks, p, q, u, r, sel = copies[0]
+    pass_a = lambda f: cycle([lambda c=c: f(*c[:3]) for c in copies])
+    pass_b = lambda f: cycle([lambda c=c: f(c[5].jrow, c[5].qrow,
+                                            c[5].use_p, c[1], c[2],
+                                            c[5].thresh) for c in copies])
+    # pass A reads the Γ window rows of p and of q once and writes 3 (B, Γ)
+    a_bytes = 2 * B * G * V * 4 + toks.numel() * 4 + 3 * B * G * 4
+    reduce_ = {"shape": {"B": B, "gamma": G, "V": V, "dtype": "float32"},
+               "ms": graph_ms(torch, pass_a(gather_reduce), iters=48),
+               "warm_ms": graph_ms(torch, lambda: gather_reduce(toks, p, q)),
+               "eager_ms": cuda_ms(torch, pass_a(gather_reduce), iters=48),
+               "plain_ms": graph_ms(torch, pass_a(gather_reduce_plain),
+                                    iters=48),
+               "library_ms": None,
+               "bound_ms": a_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+    args = (sel.jrow, sel.qrow, sel.use_p, p, q, sel.thresh)
+    tok = cdf_sample(*args)
+    # pass B must read the selected row (and the q row unless use_p) up
+    # to the crossing, + the four (B,) inputs and the token — averaged
+    # over the three copies the timing cycles through
+    need = sum(int(((cdf_sample(c[5].jrow, c[5].qrow, c[5].use_p, c[1],
+                                c[2], c[5].thresh).long() + 1) * 4
+                    * (2 - c[5].use_p.long())).sum()) for c in copies)
+    b_bytes = need / len(copies) + 5 * B * 4
+    sample = {"shape": {"B": B, "gamma": G, "V": V, "dtype": "float32"},
+              "n_accepted": sel.n_acc.tolist(),
+              "use_p": sel.use_p.tolist(), "token": tok.tolist(),
+              "ms": graph_ms(torch, pass_b(cdf_sample), iters=48),
+              "warm_ms": graph_ms(torch, lambda: cdf_sample(*args)),
+              "eager_ms": cuda_ms(torch, pass_b(cdf_sample), iters=48),
+              "plain_ms": graph_ms(torch, pass_b(cdf_sample_plain),
+                                   iters=48),
+              "library_ms": None,
+              "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes"}
+    glue_fn = lambda: cycle([lambda c=c: verify_window_fused(
+        c[0], c[2], c[1], c[3], c[4]) for c in copies])
+    glue = {"ms": graph_ms(torch, glue_fn(), iters=48),
+            "eager_ms": cuda_ms(torch, glue_fn(), iters=48)}
+    return {"gather_reduce": reduce_, "cdf_sample": sample,
+            "verify_window_fused": glue}
+
+
 def _greedy(torch, model, params, prompt, n, slots, dev):
     """Target-only greedy decode of one prompt (T = 1 steps)."""
     toks = torch.as_tensor(prompt[None, :].astype("int64"), device=dev)
@@ -609,7 +921,7 @@ class WinnerLog:
 
 
 def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
-                 log=None) -> dict:
+                 log=None, seed: int = 0) -> dict:
     """Decode ``reqs`` wave by wave (``batch`` at a time) through
     ``DecodeSession`` as ``benchmarks/bench_tree.py`` run_cell drives it:
     ``admit_batch`` the wave, ``run_chunk`` until every row stops,
@@ -627,7 +939,7 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
         max_new = wave[0].max_new_tokens
         sess = DecodeSession(eng, capacity=len(wave), max_new_cap=max_new,
                              gamma_max=GAMMA_MAX, sync_every=8,
-                             max_branches=max_branches)
+                             max_branches=max_branches, seed=seed + w0)
         if log is not None:
             log.sess = sess
         t0 = time.perf_counter()
@@ -741,6 +1053,60 @@ def tree_exact(torch, np, t_cfg, target, target_params, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def sampled_exact(torch, np, t_cfg, target_params, dev) -> None:
+    """Float32, qwen3-14b widths at 2 layers, temperature 1.0: a
+    self-speculation pair (draft = target weights) accepts ≥ 0.99 through
+    the server; a draft = target + 0.05·std noise accepts strictly between
+    0 and 1 in waves; two wave runs with the same seeds commit identical
+    tokens and acceptance bits."""
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    t0 = time.perf_counter()
+    reqs = _workload(np, t_cfg.vocab)
+    self_eng = SpecDecodeEngine(t_cfg, t_cfg, draft_params=target_params,
+                                target_params=target_params,
+                                temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                                device=dev)
+    _, selfspec = _serve(self_eng, StaticWindowPolicy(4), reqs)
+    del self_eng
+    self_acc = float(np.mean([selfspec[r.request_id].acceptance_rate
+                              for r in reqs]))
+    eng = SpecDecodeEngine(t_cfg, t_cfg, target_params=target_params,
+                           draft_params=noised_copy(torch, target_params,
+                                                    TREE_NOISE, 7),
+                           temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                           device=dev)
+    runs = [run_sessions(np, eng, reqs, StaticWindowPolicy(4), 0, seed=3)
+            for _ in range(2)]
+    same = all(np.array_equal(runs[0]["tokens"][i], runs[1]["tokens"][i])
+               and runs[0]["bits"][i] == runs[1]["bits"][i]
+               for i in runs[0]["tokens"])
+    V = t_cfg.vocab
+    full = all(t.size == 32 and (t >= 0).all() and (t < V).all()
+               for run in runs for t in run["tokens"].values())
+    info = {"phase": "exact", "check": "sampled", "dtype": "float32",
+            "temperature": SAMPLED_T, "target": t_cfg.name,
+            "layers": t_cfg.n_layers, "requests": len(reqs),
+            "self_spec_acceptance": self_acc,
+            "noised_draft": f"{t_cfg.name} + noise {TREE_NOISE}",
+            "noised_acceptance": runs[0]["acceptance"],
+            "noised_rounds": runs[0]["rounds"],
+            "same_seed_identical": same, "all_full_in_range": full,
+            "seconds": time.perf_counter() - t0}
+    emit(info)
+    if self_acc < 0.99:
+        fail(f"sampled self-speculation acceptance {self_acc} < 0.99")
+    if not 0.0 < runs[0]["acceptance"] < 1.0:
+        fail(f"sampled noised-draft acceptance {runs[0]['acceptance']} is "
+             "not strictly between 0 and 1")
+    if not same:
+        fail("two sampled runs with the same seed differ")
+    if not full:
+        fail("sampled runs: incomplete or out-of-range outputs")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def phase_exact(torch):
     import numpy as np
     from repro_torch.configs import get_config
@@ -793,6 +1159,7 @@ def phase_exact(torch):
         fail(f"self-speculation acceptance {acc} != 1.0")
     del self_eng, srv_d, srv_p
     tree_exact(torch, np, t_cfg, eng.target, eng.target_params, dev)
+    sampled_exact(torch, np, t_cfg, eng.target_params, dev)
     del eng
     torch.cuda.empty_cache()
 
@@ -836,10 +1203,15 @@ def phase_serve(torch, kernels):
     base = ["--target", "qwen3-14b", "--draft", "qwen2.5-3b", "--full-size",
             "--max-batch", "4", "--requests", "8", "--max-new", "32",
             "--gamma-max", str(GAMMA_MAX), "--seed", "0", "--json"]
+    t1 = ["--temperature", str(SAMPLED_T)]
     runs = [("dense_static", ["--policy", "static", "--gamma", "4"]),
             ("dense_awc", ["--policy", "awc"]),
             ("paged_static", ["--policy", "static", "--gamma", "4",
-                              "--paged-kv"])]
+                              "--paged-kv"]),
+            ("dense_static_t1", ["--policy", "static", "--gamma", "4"] + t1),
+            ("paged_static_t1", ["--policy", "static", "--gamma", "4",
+                                 "--paged-kv"] + t1)]
+    greedy_tokens = {}
     # the launcher's request stream (seed 0): its padded prompt bound P
     # fixes the slot length P + max_new + 2γ_max + 18 and so dense parity
     P = 16 * math.ceil(max(len(r.prompt) for r in _workload(np, 151936))
@@ -867,27 +1239,41 @@ def phase_serve(torch, kernels):
             want = {"decode_attn": per_admit, "paged_decode_attn": per_round}
         else:
             want = {"decode_attn": expect, "paged_decode_attn": 0}
-        want.update(tree_argmax=0, tree_accept=0)
+        sampled = "--temperature" in extra
+        b3 = s["iterations"] if sampled else 0
+        want.update(tree_argmax=0, tree_accept=0, gather_reduce=b3,
+                    cdf_sample=b3)
         V = eng.target_cfg.vocab
         full = all(len(r.tokens) == 32 and (r.tokens >= 0).all()
                    and (r.tokens < V).all() for r in out.results)
         keys = eng.step_programs()
         want_keys = 3 if "--paged-kv" in extra else 2
-        # information only: bf16 agreement with a target-only greedy decode
+        # information only: bf16 agreement with a target-only greedy decode;
+        # a sampled run's share of tokens equal to its greedy twin's
         agree = _agreement(torch, out, dev) if name == "dense_static" \
             else None
+        twin = name.replace("_t1", "")
+        byid = {r.request_id: r.tokens for r in out.results}
+        if sampled:
+            agree = {"share_equal_to_greedy_twin": float(np.mean(
+                [(byid[i] == greedy_tokens[twin][i]).mean()
+                 for i in byid]))}
+        else:
+            greedy_tokens[name] = byid
         info = {"phase": "serve", "run": name, "requests": s["requests"],
                 "tokens": s["tokens"], "wall_s": s["wall_s"],
                 "tokens_per_s": s["tokens_per_s"],
                 "mean_ttft_ms": s["mean_ttft_ms"],
                 "mean_tpot_ms": s["mean_tpot_ms"],
                 "mean_acceptance": s["mean_acceptance"],
+                "temperature": s["temperature"],
+                "fused_fraction": s["pairs"]["pair0"]["fused_fraction"],
                 "rounds": s["iterations"], "step_keys": keys,
                 "launches": launches, "expected_launches": want,
                 "max_memory_allocated_gb":
                     torch.cuda.max_memory_allocated() / 2**30,
                 "all_full_in_range": full, "pairs": s["pairs"],
-                "bf16_agreement_with_target_greedy": agree,
+                "bf16_agreement": agree,
                 "sync_debug_mode_in_rounds": "error"}
         emit(info)
         if s["requests"] != 8 or not full:
@@ -902,7 +1288,7 @@ def phase_serve(torch, kernels):
         torch.cuda.empty_cache()
     for k, n in serve_tree(torch, np, kernels, dev).items():
         totals[k] += n
-    profile_round(torch, serve, base)
+    profile_round(torch, serve, base, t1, "dense_static_t1 4x8")
     return totals
 
 
@@ -921,15 +1307,13 @@ def serve_tree(torch, np, kernels, dev) -> dict:
     L_d, L_t = d_cfg.n_layers, t_cfg.n_layers
     reqs = _workload(np, vocab)
     totals = {k: 0 for k in kernels.LAUNCHES}
-    # linear wave runs before and after the tree runs are the same-harness
-    # yardstick of their wall per round (the first also pays the engine's
-    # warm-up; their launches are not the tree path's)
-    linear = lambda: StaticWindowPolicy(4)
-    runs = [("linear_static_waves", linear(), 0, 1),
+    # a linear wave run before the tree runs is the same-harness yardstick
+    # of their wall per round (it also pays the engine's warm-up; its
+    # launches are not the tree path's)
+    runs = [("linear_static_waves", StaticWindowPolicy(4), 0, 1),
             ("tree_static", StaticWindowPolicy(4, branches=B_MAX), B_MAX, 2),
             ("tree_awc", make_window_policy("awc", max_branches=B_MAX),
-             B_MAX, 2),
-            ("linear_static_waves_after", linear(), 0, 2)]
+             B_MAX, 2)]
     for name, inner, b_max, want_keys in runs:
         policy = RecordingPolicy(inner, max(1, b_max))
         torch.cuda.reset_peak_memory_stats()
@@ -940,7 +1324,8 @@ def serve_tree(torch, np, kernels, dev) -> dict:
         tree_n = rounds if b_max else 0
         want = {"decode_attn": rounds * (GAMMA_MAX * L_d + L_t)
                 + waves * (L_d + L_t), "paged_decode_attn": 0,
-                "tree_argmax": tree_n, "tree_accept": tree_n}
+                "tree_argmax": tree_n, "tree_accept": tree_n,
+                "gather_reduce": 0, "cdf_sample": 0}
         full = all(t.size == 32 and (t >= 0).all() and (t < vocab).all()
                    for t in res["tokens"].values())
         keys = eng.step_programs()
@@ -991,21 +1376,24 @@ def profile_tree(torch, np, eng, vocab) -> None:
                          len(reqs), res["wall_s"]))
 
 
-def profile_round(torch, serve, base) -> None:
+def profile_round(torch, serve, base, extra, run) -> None:
     """Where a round's time goes: device kernel time from torch.profiler
-    over a short dense serve (4 requests × 8 tokens), beside its wall time.
-    The profiler's own host overhead inflates that wall; the unprofiled
-    runs above give the honest wall per round."""
+    over a short dense serve (4 requests × 8 tokens; ``extra`` launcher
+    flags: the sampled round runs every kernel the greedy one does, plus
+    B3), beside its wall time. The profiler's own host overhead
+    inflates that wall; the unprofiled runs above give the honest wall per
+    round."""
     from torch.profiler import ProfilerActivity, profile
     argv = [a for a in base]
     argv[argv.index("--requests") + 1] = "4"
     argv[argv.index("--max-new") + 1] = "8"
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = serve.run(argv + ["--policy", "static", "--gamma", "4"])
+        out = serve.run(argv + ["--policy", "static", "--gamma", "4"]
+                        + extra)
         torch.cuda.synchronize()
     s = out.summary
-    emit(profile_summary(prof, "dense_static 4x8", s["iterations"],
-                         s["requests"], s["wall_s"]))
+    emit(profile_summary(prof, run, s["iterations"], s["requests"],
+                         s["wall_s"]))
     del out
     torch.cuda.empty_cache()
 
@@ -1074,8 +1462,15 @@ def main(argv=None) -> int:
         "tree_accept": (csrc + "tree_verify.cu",
                         "src/repro/kernels/verify/tree.py:60",
                         "tree_accept_kernel"),
+        "gather_reduce": (csrc + "sampled_verify.cu",
+                          "src/repro/kernels/verify/verify.py:34",
+                          "gather_reduce_kernel"),
+        "cdf_sample": (csrc + "sampled_verify.cu",
+                       "src/repro/kernels/verify/verify.py:70",
+                       "cdf_sample_kernel"),
     }
     slice_t, tree_t = times.get("slice", {}), times.get("tree", {})
+    tree_t = dict(tree_t, **times.get("sampled", {}))
     rows = []
     for name, (src, tpu, tpu_fn) in replaces.items():
         t = (dict(slice_t[name], shape=slice_t["shape"]) if name in slice_t
@@ -1089,11 +1484,18 @@ def main(argv=None) -> int:
                "library_ms": t.get("library_ms"), "shape": t.get("shape")}
         if name in times.get("long", {}):
             row["long_context"] = times["long"][name]
+        if name == "cdf_sample" and "cdf_sample_flagged" in err:
+            # max_abs_err is in tokens; rows off by it lie at a CDF step
+            row["flagged_at_cdf_step"] = err["cdf_sample_flagged"]
         if name == "decode_attn" and tree_t:
             row["max_abs_err"] = max(err["decode_attn"],
                                      err["decode_attn_tree"])
             row["tree_verify"] = tree_t["decode_attn_tree_verify"]
         rows.append(row)
+    if "serve" in phases:
+        idle = [r["name"] for r in rows if not r["launches"]]
+        if idle:
+            fail(f"kernels never launched on the main paths: {idle}")
     emit({"kernels": rows})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -17,6 +17,10 @@ The decode hot loop mirrors the reference ``repro/core/engine.py``:
   PLACE (the reference donates them to its jitted step).
 - The step never reads a device value on the host; the session syncs once
   per ``sync_every`` rounds.
+- At temperature > 0 the draft samples, the sampled accept/resample rule
+  runs through the kernel pair B3, and the anchor token of every admission
+  is sampled; every draw comes from the session's ``torch.Generator`` on
+  the device (the reference's PRNG key), so a seed fixes the tokens.
 
 The reference counts compiled XLA programs; the port counts the distinct
 step keys it has built (``("fused", γ_max)``, ``("tree", d_max, b_max)``,
@@ -40,7 +44,8 @@ from ..kernels.verify import tree_verify_fused
 from ..models.kvcache import (PagedAttnCache, insert_slot, paged_insert_row,
                               paged_release_slot, tree_commit_cache)
 from ..models.model import build_model
-from .specdec import SpecDecodeState, slot_stop_mask, spec_decode_step
+from .specdec import (SpecDecodeState, _temperature_probs, sample_from_probs,
+                      slot_stop_mask, spec_decode_step)
 from .tree import (TreeSpec, TreeVerifyResult, tree_committed,
                    tree_path_from_winner, tree_propose)
 from .window import StaticWindowPolicy, WindowPolicy
@@ -108,6 +113,8 @@ class SpecDecodeEngine:
 
     ``device`` is the card unless the caller passes ``device="cpu"``;
     without a CUDA device and without ``device="cpu"`` construction raises.
+    ``temperature`` > 0 samples (kernels B3 verify every round); 0 is
+    greedy. The tree step is greedy-only.
     Weights not passed in are drawn on the device from ``seed`` (draft from
     ``seed``, target from ``seed + 1``). ``gamma_max`` pins the window
     width (None: the policy's own bound per ``generate``); ``sync_every``
@@ -118,10 +125,8 @@ class SpecDecodeEngine:
                  temperature: float = 0.0, rtt_ms: float = 0.0,
                  gamma_max: Optional[int] = None, sync_every: int = 8,
                  device=None):
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) and its verify kernels "
-                "come with ROADMAP item A8; the port runs temperature 0")
+        if temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
         assert draft_cfg.vocab == target_cfg.vocab, \
             "draft/target must share a tokenizer/vocab"
         self.device = resolve_device(device)
@@ -155,17 +160,19 @@ class SpecDecodeEngine:
         """The decode step at width ``gamma_max``. Finished/free rows commit
         nothing and their position freezes; the window KV they still write
         lands beyond their committed prefix (masked by pos_map) and is
-        overwritten by the next insert into that slot."""
+        overwritten by the next insert into that slot. ``generator`` (the
+        session's) feeds the sampled rounds; greedy rounds draw nothing."""
         self.step_keys.add(("fused", gamma_max))
         draft_decode = self.draft.decode_step
         target_verify = self.target.verify_step
 
         def step(state: SpecDecodeState, active_gamma, row_idx, out_buf,
-                 cursor, nacc_buf, nn_buf, max_new, done, eos_id
-                 ) -> SpecDecodeState:
+                 cursor, nacc_buf, nn_buf, max_new, done, eos_id,
+                 generator=None) -> SpecDecodeState:
             res = spec_decode_step(draft_decode, target_verify,
                                    self.draft_params, self.target_params,
-                                   state, gamma_max, active_gamma)
+                                   state, gamma_max, active_gamma,
+                                   self.temperature, generator)
             stop = slot_stop_mask(res.num_new, res.n_accepted,
                                   res.new_tokens, cursor, max_new, done,
                                   eos_id)
@@ -264,8 +271,9 @@ class SpecDecodeEngine:
         self.step_keys.add(("insert", capacity, slots, pad_len))
 
         def insert(state, out_buf, cursor, max_new_buf, done, prompt, plen,
-                   slot: int, req_max_new: int) -> None:
-            one = self._prefill(prompt, slots, prompt_lens=plen)
+                   slot: int, req_max_new: int, generator=None) -> None:
+            one = self._prefill(prompt, slots, prompt_lens=plen,
+                                generator=generator)
             insert_slot(state.draft_cache, one.draft_cache, slot)
             insert_slot(state.target_cache, one.target_cache, slot)
             self._insert_rows(state, one, out_buf, cursor, max_new_buf,
@@ -283,8 +291,9 @@ class SpecDecodeEngine:
 
         def insert(state, out_buf, cursor, max_new_buf, done, prompt, plen,
                    slot: int, req_max_new: int, draft_blocks,
-                   target_blocks) -> None:
-            one = self._prefill(prompt, slots, prompt_lens=plen)
+                   target_blocks, generator=None) -> None:
+            one = self._prefill(prompt, slots, prompt_lens=plen,
+                                generator=generator)
             for cache, row, blocks in (
                     (state.draft_cache, one.draft_cache, draft_blocks),
                     (state.target_cache, one.target_cache, target_blocks)):
@@ -314,11 +323,14 @@ class SpecDecodeEngine:
     # --------------------------------------------------------------- prefill
 
     def _prefill(self, prompts: torch.Tensor, slots: int,
-                 prompt_lens: Optional[torch.Tensor] = None
+                 prompt_lens: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
                  ) -> SpecDecodeState:
         """Right-padded batched prefill. With ``prompt_lens`` the anchor
         logit is taken at each sequence's true last prompt token; padded
-        cache slots are overwritten before any query can attend them."""
+        cache slots are overwritten before any query can attend them. The
+        anchor token is the target's argmax at temperature 0 and a sample
+        (noise from ``generator``) above it."""
         B, S = prompts.shape
         _, dcache = self.draft.prefill(self.draft_params, prompts, slots)
         tlg, tcache = self.target.prefill(self.target_params, prompts, slots)
@@ -329,7 +341,11 @@ class SpecDecodeEngine:
             rows = torch.arange(B, device=self.device)
             anchor = tlg[rows, (prompt_lens - 1).long()]
             pos = prompt_lens.to(torch.int32)
-        first = torch.argmax(anchor, dim=-1).to(torch.int32)
+        if self.temperature <= 0.0:
+            first = torch.argmax(anchor, dim=-1).to(torch.int32)
+        else:
+            first = sample_from_probs(
+                _temperature_probs(anchor, self.temperature), generator)
         return SpecDecodeState(draft_cache=dcache, target_cache=tcache,
                                last_token=first, pos=pos)
 
@@ -340,11 +356,12 @@ class SpecDecodeEngine:
                  prompt_lens: Optional[np.ndarray] = None,
                  gamma_max: Optional[int] = None,
                  sync_every: Optional[int] = None, eos_id: int = -1,
-                 transport=None, mode_policy: str = "auto"
+                 transport=None, mode_policy: str = "auto", seed: int = 0
                  ) -> tuple[np.ndarray, GenerationStats]:
         """Batched one-wave generation over a :class:`DecodeSession`.
-        Returns (tokens (B, max_new), stats). ``transport`` (the
-        distributed split) comes with ROADMAP item A9."""
+        Returns (tokens (B, max_new), stats). ``seed`` seeds the session's
+        generator (the sampled path's draws; the reference's ``key``).
+        ``transport`` (the distributed split) comes with ROADMAP item A9."""
         from .session import DecodeSession    # session imports engine types
         if transport is not None:
             raise NotImplementedError(
@@ -362,7 +379,7 @@ class SpecDecodeEngine:
         t0 = time.perf_counter()
         sess = DecodeSession(self, capacity=B, max_new_cap=max_new_tokens,
                              gamma_max=gmax, sync_every=sync, eos_id=eos_id,
-                             mode_policy=mode_policy)
+                             mode_policy=mode_policy, seed=seed)
         sess.admit_batch(prompts, max_new_tokens, prompt_lens=prompt_lens)
         max_iters = max_new_tokens + sync
         while sess.unfinished and sess.iterations < max_iters:
@@ -370,3 +387,13 @@ class SpecDecodeEngine:
         tokens, stats = sess.snapshot()
         stats.wall_s = time.perf_counter() - t0
         return tokens, stats
+
+    # ------------------------------------------------------------ trace capture
+
+    def capture_traces(self, prompts: np.ndarray, max_new_tokens: int,
+                       gamma: int = 8, seed: int = 0) -> list[list[int]]:
+        """Ground-truth acceptance sequences for DSD-Sim (paper §3.2): the
+        per-request 0/1 acceptance bits of a static-γ run."""
+        _, stats = self.generate(prompts, max_new_tokens,
+                                 StaticWindowPolicy(gamma), seed=seed)
+        return stats.acceptance_seqs

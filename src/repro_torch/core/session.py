@@ -20,6 +20,12 @@ device they run under ``torch.cuda.set_sync_debug_mode("error")``, so a
 host sync slipped into the step raises instead of silently serializing the
 loop. The host syncs once per chunk (:meth:`_sync_and_attribute`).
 
+The session owns one ``torch.Generator`` on its device, seeded from
+``seed`` (the reference session's PRNG key). At temperature > 0 every
+round and every admission draws from it on the device — the draft's
+Gumbel noise, the verify's uniforms, the sampled anchor token — so a seed
+fixes the committed tokens and no draw syncs the host.
+
 With ``max_branches > 0`` the rounds are tree-speculation rounds (the
 engine's ``_tree_step``; dense KV, greedy, colocated). The transport and
 pipelined rounds of the reference come with ROADMAP item A9.
@@ -28,6 +34,7 @@ pipelined rounds of the reference come with ROADMAP item A9.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -94,6 +101,8 @@ class DecodeSession:
                        ``{"draft": n, "target": m}``); None sizes the pool
                        at full dense parity,
     ``kv_quantize``    int8 per-entry K/V with f32 scales,
+    ``seed``           seed of the session's device generator (the sampled
+                       path's draws; greedy sessions draw nothing),
     ``max_branches``   > 0: tree speculation on the (γ_max, max_branches)
                        grid step, with the window policy's per-round branch
                        width b ≤ the bound (``WindowDecision.branches``); 0
@@ -110,7 +119,7 @@ class DecodeSession:
                  mode_policy: str = "auto", pair_key: str = "engine",
                  paged: bool = False, kv_block_size: int = 16,
                  kv_pool_blocks=None, kv_quantize: bool = False,
-                 transport=None, max_branches: int = 0):
+                 transport=None, max_branches: int = 0, seed: int = 0):
         # ---- tree speculation (core/tree.py), the reference's gates ------
         self.max_branches = int(max_branches or 0)
         if self.max_branches:
@@ -137,6 +146,8 @@ class DecodeSession:
                 "target split) come with ROADMAP item A9")
         self.engine = engine
         self.device = engine.device
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
         self.capacity = int(capacity)
         self.max_new_cap = int(max_new_cap)
         self.max_prompt_len = (None if max_prompt_len is None
@@ -343,7 +354,8 @@ class DecodeSession:
               else torch.as_tensor(np.asarray(prompt_lens, np.int32),
                                    device=dev))
         state = self.engine._prefill(torch.as_tensor(prompts, device=dev),
-                                     self.slots_len, prompt_lens=pl)
+                                     self.slots_len, prompt_lens=pl,
+                                     generator=self._gen)
         self._init_buffers()
         mn = np.minimum(np.broadcast_to(np.asarray(max_new), (B,)),
                         self.max_new_cap).astype(np.int32)
@@ -390,14 +402,15 @@ class DecodeSession:
                 self.capacity, self.slots_len, P,
                 blocks["draft"].shape[0], blocks["target"].shape[0])
             insert(*args, torch.as_tensor(blocks["draft"], device=dev),
-                   torch.as_tensor(blocks["target"], device=dev))
+                   torch.as_tensor(blocks["target"], device=dev),
+                   generator=self._gen)
             self._slot_blocks[j] = {
                 s: [int(i) for i in ids if i >= 0]
                 for s, ids in blocks.items() if ids.size}
         else:
             insert = self.engine._insert_step(self.capacity, self.slots_len,
                                               P)
-            insert(*args)
+            insert(*args, generator=self._gen)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self._slots[j] = SlotRecord(request_id=request_id, max_new=budget,
@@ -470,8 +483,11 @@ class DecodeSession:
             return 0
         eng = self.engine
         tree = bool(self.max_branches)
-        step = (eng._tree_step(self.gamma_max, self.max_branches) if tree
-                else eng._fused_step(self.gamma_max))
+        if tree:
+            step = eng._tree_step(self.gamma_max, self.max_branches)
+        else:
+            step = functools.partial(eng._fused_step(self.gamma_max),
+                                     generator=self._gen)
         chunk_t0 = time.perf_counter()
         chunk_gammas: list[int] = []
         with no_host_sync(self.device):

@@ -1,27 +1,38 @@
-"""Speculative decoding algorithm (paper §2.1) at temperature 0, in
-PyTorch, model-agnostic and batched with no data-dependent host control
-flow (the step never reads a device value on the host).
+"""Speculative decoding algorithm (paper §2.1) in PyTorch, model-agnostic
+and batched with no data-dependent host control flow (the step never reads
+a device value on the host).
 
-- the draft proposes γ tokens (argmax at temperature 0),
-- the target evaluates the γ+1 window in one pass,
-- token i is accepted while it equals the target's argmax; the target's
-  argmax at the first mismatch (or the extra position) is committed next.
+- the draft proposes γ tokens with per-position distributions q_i (argmax
+  at temperature 0),
+- the target evaluates the γ+1 window in one pass giving p_i,
+- at temperature 0 token i is accepted while it equals the target's
+  argmax, and the target's argmax at the first mismatch (or the extra
+  position) is committed next;
+- at temperature > 0 (the Leviathan/Chen rule) token i is accepted iff
+  u_i < min(1, p_i(t_i)/q_i(t_i)); on the first rejection the residual
+  norm(max(p_i − q_i, 0)) is sampled, and if all γ accept a bonus token is
+  drawn from p_{γ+1} — through the kernel pair B3 (:func:`verify_window`).
 
 Per-token acceptance probability α gives (paper Eqs. (1)–(2)):
 
     E[τ] = (1 − α^{γ+1}) / (1 − α)
     S    = (1 − α^{γ+1}) / ((1 − α)(cγ + 1))
 
-The sampled accept/resample rule (temperature > 0) and its kernel pair
-come with ROADMAP item A8.
+Random draws come from a ``torch.Generator`` on the step's device (the
+session owns one): the draft's Gumbel noise, then u (B, Γ) and r (B,) of
+the verify. torch cannot reproduce the reference's threefry bits, so the
+sampled path agrees with the reference in distribution; with the same
+uniforms (or Gumbel noise) injected it agrees exactly.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..kernels.verify import verify_window_fused
 
 
 # --------------------------------------------------------------------------
@@ -53,7 +64,36 @@ def optimal_gamma(alpha: float, cost_ratio: float, gmax: int = 12) -> int:
 
 
 # --------------------------------------------------------------------------
-# Verification (greedy)
+# Sampling helpers
+# --------------------------------------------------------------------------
+
+def _temperature_probs(logits: torch.Tensor,
+                       temperature: float) -> torch.Tensor:
+    """Softmax at temperature > 0, in float32 whatever the logits' type
+    (the reference keeps the logits' type; the port's logits are float32,
+    so the two agree). At temperature 0 the reference's one-hot argmax is
+    the argmax itself, which the port's callers take directly."""
+    return torch.softmax(logits.float() / temperature, dim=-1)
+
+
+def sample_from_probs(probs: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Categorical sample over the last axis by Gumbel-max on
+    log(max(p, 1e-20)) → int32 (``jax.random.categorical``'s rule). The
+    standard Gumbel noise −log(−log U), U uniform on [tiny, 1) as
+    ``jax.random.gumbel`` draws it, comes from ``generator`` on the probs'
+    device unless the caller injects it."""
+    logp = torch.log(probs.clamp_min(1e-20))
+    if gumbel is None:
+        u = torch.rand(probs.shape, generator=generator, device=probs.device)
+        gumbel = -torch.log(-torch.log(
+            u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(gumbel + logp, dim=-1).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Verification
 # --------------------------------------------------------------------------
 
 class VerifyResult(NamedTuple):
@@ -61,6 +101,31 @@ class VerifyResult(NamedTuple):
     next_token: torch.Tensor   # (B,) int32 — corrected or bonus token
     accept_mask: torch.Tensor  # (B, γ) bool — per-position acceptance
     num_new: torch.Tensor      # (B,) int32 — n_accepted + 1 tokens produced
+
+
+def verify_window(generator: Optional[torch.Generator],
+                  draft_tokens: torch.Tensor,   # (B, Γ) int32
+                  q_probs: torch.Tensor,        # (B, Γ, V) draft
+                  p_probs: torch.Tensor,        # (B, Γ+1, V) target
+                  active_gamma: Optional[torch.Tensor] = None
+                  ) -> VerifyResult:
+    """The sampled accept/resample rule over the window (the port of the
+    reference's ``verify_window``), through the kernel pair B3
+    (:func:`~repro_torch.kernels.verify.verify_window_fused`; the plain
+    versions for CPU tensors). u (B, Γ) and r (B,) are drawn at width Γ
+    from ``generator``. ``active_gamma`` (0-d or (B,) int32, None ⇒ Γ)
+    masks the window to its first positions; the bonus comes from p row
+    ``active_gamma``, so one width serves every γ."""
+    B, gamma = draft_tokens.shape
+    dev = draft_tokens.device
+    u = torch.rand((B, gamma), generator=generator, device=dev)
+    r = torch.rand((B,), generator=generator, device=dev)
+    out = verify_window_fused(draft_tokens, q_probs, p_probs, u, r,
+                              active_gamma=active_gamma)
+    return VerifyResult(n_accepted=out.n_accepted,
+                        next_token=out.next_token,
+                        accept_mask=out.accept_mask,
+                        num_new=out.n_accepted + 1)
 
 
 def verify_window_greedy(draft_tokens: torch.Tensor,
@@ -133,23 +198,36 @@ def slot_stop_mask(num_new: torch.Tensor, n_accepted: torch.Tensor,
 
 class DraftProposal(NamedTuple):
     tokens: torch.Tensor    # (B, γ) int32
+    q_probs: Optional[torch.Tensor]   # (B, γ, V) f32; None at temperature 0
     cache: object           # draft model cache after the window
 
 
 def draft_propose(decode_fn: Callable, params, cache,
                   last_token: torch.Tensor, start_pos: torch.Tensor,
-                  gamma: int) -> DraftProposal:
-    """Autoregressively propose γ tokens with the draft model at temperature
-    0. The reference draws Gumbel-max samples from one-hot probabilities,
-    which is the argmax; the port takes the argmax directly.
-    ``decode_fn(params, token, cache, pos) -> (logits, cache)``."""
-    tok, pos, toks = last_token, start_pos, []
+                  gamma: int, temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> DraftProposal:
+    """Autoregressively propose γ tokens with the draft model.
+    ``decode_fn(params, token, cache, pos) -> (logits, cache)``. At
+    temperature 0 the reference draws Gumbel-max samples from one-hot
+    probabilities, which is the argmax; the port takes the argmax directly
+    and keeps no q. At temperature > 0 each token is sampled from
+    softmax(logits / T) with noise from ``generator``, and those
+    distributions come back as ``q_probs``."""
+    tok, pos, toks, qs = last_token, start_pos, [], []
     for _ in range(gamma):
         logits, cache = decode_fn(params, tok, cache, pos)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if temperature > 0.0:
+            probs = _temperature_probs(logits, temperature)
+            tok = sample_from_probs(probs, generator)
+            qs.append(probs)
+        else:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(tok)
         pos = pos + 1
-    return DraftProposal(tokens=torch.stack(toks, dim=1), cache=cache)
+    return DraftProposal(tokens=torch.stack(toks, dim=1),
+                         q_probs=torch.stack(qs, dim=1) if qs else None,
+                         cache=cache)
 
 
 # --------------------------------------------------------------------------
@@ -173,8 +251,12 @@ class SpecDecodeOut(NamedTuple):
 
 def spec_decode_step(draft_decode_fn: Callable, target_verify_fn: Callable,
                      draft_params, target_params, state: SpecDecodeState,
-                     gamma: int, active_gamma: torch.Tensor) -> SpecDecodeOut:
-    """One speculation iteration at temperature 0.
+                     gamma: int, active_gamma: torch.Tensor,
+                     temperature: float = 0.0,
+                     generator: Optional[torch.Generator] = None
+                     ) -> SpecDecodeOut:
+    """One speculation iteration: greedy verify at temperature 0, the
+    sampled rule (kernels B3) above it with draws from ``generator``.
 
     ``target_verify_fn(params, tokens, cache, pos) -> (logits, cache)``
     runs the target over the γ+1 window ``[last_token, draft_tokens]``.
@@ -183,11 +265,17 @@ def spec_decode_step(draft_decode_fn: Callable, target_verify_fn: Callable,
     the fixed window width (γ_max); ``active_gamma`` masks acceptance so
     one width serves every γ ∈ [0, γ_max]."""
     prop = draft_propose(draft_decode_fn, draft_params, state.draft_cache,
-                         state.last_token, state.pos, gamma)
+                         state.last_token, state.pos, gamma, temperature,
+                         generator)
     window = torch.cat([state.last_token[:, None], prop.tokens], dim=1)
     p_logits, target_cache = target_verify_fn(
         target_params, window, state.target_cache, state.pos)
-    res = verify_window_greedy(prop.tokens, p_logits, active_gamma)
+    if temperature <= 0.0:
+        res = verify_window_greedy(prop.tokens, p_logits, active_gamma)
+    else:
+        res = verify_window(generator, prop.tokens, prop.q_probs,
+                            _temperature_probs(p_logits, temperature),
+                            active_gamma=active_gamma)
 
     # committed tokens: accepted prefix then the corrected/bonus token
     ar = torch.arange(gamma + 1, device=window.device)[None, :]

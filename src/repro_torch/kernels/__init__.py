@@ -5,7 +5,9 @@
 - decode_attn.paged — the same over a paged block pool (replaces
   ``repro/kernels/decode_attn/paged.py``),
 - verify.tree — greedy tree verify: the per-entry target argmax and the
-  longest-accepted-root-path rule (replace ``repro/kernels/verify/tree.py``).
+  longest-accepted-root-path rule (replace ``repro/kernels/verify/tree.py``),
+- verify.verify — sampled verify: the gather/residual-mass pass and the
+  inverse-CDF sample (replace ``repro/kernels/verify/verify.py``).
 
 The CUDA sources live in ``repro_torch/csrc``. They are compiled at first
 use with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
@@ -43,7 +45,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch counts per kernel wrapper; read and reset by callers that need to
 # show a path ran through the kernels (chip_smoke.py)
 LAUNCHES: dict[str, int] = {"decode_attn": 0, "paged_decode_attn": 0,
-                            "tree_argmax": 0, "tree_accept": 0}
+                            "tree_argmax": 0, "tree_accept": 0,
+                            "gather_reduce": 0, "cdf_sample": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -159,6 +162,12 @@ _SIGNATURES = {
     # tok, tgt, parent, tpos, valid, mask, n_acc, winner, bonus, B, T,
     # stream
     "tree_accept_launch": [_P] * 9 + [_I] * 2 + [_P],
+    # tokens, p, q, partial, p_at, q_at, mass, B, gamma, V, splits, dtype,
+    # stream
+    "gather_reduce_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "gather_reduce_chunk": [],
+    # jrow, qrow, use_p, p, q, thresh, token, B, gamma, V, dtype, stream
+    "cdf_sample_launch": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 

@@ -4,8 +4,8 @@ slot-based scheduler, one draft–target pair colocated on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --target qwen3-14b --draft qwen2.5-3b --policy awc \
-        --requests 8 --max-new 32 [--arrival-rate 8] [--paged-kv] \
-        [--full-size] [--device cuda|cpu] [--json]
+        --requests 8 --max-new 32 [--arrival-rate 8] [--temperature 0.0] \
+        [--paged-kv] [--full-size] [--device cuda|cpu] [--json]
 
 The flags are the reference launcher's one-pair surface that the port
 runs (``repro/launch/serve.py``), plus ``--device`` (the card by default),
@@ -15,8 +15,9 @@ launcher; ``--full-size`` serves the published widths and depths in their
 published dtype (the reference's ``build_deployment(reduced=False)``).
 Weights are random, drawn on the device from ``--seed``. ``--arrival-rate``
 draws Poisson arrivals (requests/s); TTFT and e2e include queue wait.
-Topologies, links, the wave server and temperature > 0 come with ROADMAP
-items A13, A9 and A8.
+``--temperature`` > 0 samples (the sampled verify runs kernels B3 every
+round); the sessions seed their generators as the reference's do (0).
+Topologies, links and the wave server come with ROADMAP items A13 and A9.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "runs the same step")
     ap.add_argument("--sync-every", type=int, default=8,
                     help="decode rounds between host stat syncs")
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--paged-kv", action="store_true",
@@ -86,6 +88,7 @@ def run(argv=None) -> ServeRun:
     cfgs = {r: (c if c.vocab == vocab else replace(c, vocab=vocab))
             for r, c in raw.items()}
     engine = SpecDecodeEngine(cfgs["draft"], cfgs["target"], seed=args.seed,
+                              temperature=args.temperature,
                               rtt_ms=args.rtt_ms, gamma_max=args.gamma_max,
                               sync_every=args.sync_every, device=args.device)
     policy = make_window_policy(args.policy, gamma=args.gamma)
@@ -116,6 +119,7 @@ def run(argv=None) -> ServeRun:
         "target": cfgs["target"].name,
         "draft": cfgs["draft"].name,
         "policy": args.policy,
+        "temperature": args.temperature,
         "paged_kv": bool(args.paged_kv),
         "requests": len(results),
         "tokens": tokens,

@@ -360,9 +360,13 @@ def test_launcher_runs_on_cpu(capsys):
 
 def test_unported_features_name_their_roadmap_items(pair):
     _, teng = pair["random"]
-    with pytest.raises(NotImplementedError, match="A8"):
-        SpecDecodeEngine(teng.draft_cfg, teng.target_cfg, temperature=0.7,
-                         device="cpu")
+    # sampled decoding (A8) is ported; tree sessions stay greedy-only
+    sampled = SpecDecodeEngine(teng.draft_cfg, teng.target_cfg,
+                               draft_params=teng.draft_params,
+                               target_params=teng.target_params,
+                               temperature=0.7, device="cpu")
+    with pytest.raises(ValueError, match="greedy-only"):
+        DecodeSession(sampled, capacity=1, max_new_cap=4, max_branches=2)
     with pytest.raises(NotImplementedError, match="A9"):
         DecodeSession(teng, capacity=1, max_new_cap=4,
                       mode_policy="pipeline")
