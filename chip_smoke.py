@@ -10,14 +10,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               with nvcc for sm_90a;
 3. kernels  — B1 (dense), B2 (paged, fp and int8), B1 with the tree
               ancestor mask, B4a (tree argmax), B4b (tree accept), B3a
-              (sampled gather/residual mass) and B3b (inverse-CDF sample)
-              against their plain PyTorch versions at the slices' shapes
-              (B4 exactly; B3 exactly up to float32 cumsum rounding at a
-              CDF step, those cases counted), the sampled verify's first
+              (sampled gather/residual mass), B3b (inverse-CDF sample), B1
+              at the hybrid's shared-attention shape and B5 (the SSD
+              chunked scan, f32 and bf16, eight shapes up to S 4096, zero-dt
+              rows exact identities) against their plain PyTorch versions
+              at the slices' shapes (B4 exactly; B3 exactly up to float32
+              cumsum rounding at a CDF step, those cases counted; B5
+              within atol 5e-4 / rtol 1e-3), the sampled verify's first
               committed token against p_0 (chi-square), then timed against
               the plain version, a library yardstick the port never calls
-              (``scaled_dot_product_attention``, ``torch.argmax``) and the
-              bound;
+              (``scaled_dot_product_attention``, ``torch.argmax``; none for
+              B5) and the bound;
 4. exact    — float32, full widths at 2 layers each: the server's greedy
               tokens on dense KV == on paged KV (pool at 60 % of dense
               parity) == a target-only greedy decode, and a self-speculation
@@ -29,21 +32,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               the linear one bit for bit (tokens and acceptance bits); at
               temperature 1.0, self-speculation accepts ≥ 0.99, the noised
               draft strictly between 0 and 1, and a seed fixes the tokens;
-5. serve    — the full qwen3-14b target ← qwen2.5-3b draft pair in bf16
-              through ``repro_torch.launch.serve``: dense static γ=4, dense
-              AWC, paged static γ=4, each checked for complete in-range
-              outputs, kernel launch counts equal to rounds·(γ_max·L_draft +
+5. serve    — the qwen3-14b target ← qwen2.5-3b draft pair in bf16
+              through ``repro_torch.launch.serve``: dense and paged static
+              γ=4 at the published depth, dense AWC at QWEN_CUT depth
+              (every width as published), each checked for complete
+              in-range outputs, kernel launch counts equal to rounds·(γ_max·L_draft +
               L_target) + admissions·(L_draft + L_target), and the step-key
               count; then the same pair through tree ``DecodeSession``s
               (γ_max 8, b_max 3; static γ 4 × b 3 and AWC with
               max_branches=3), checked for complete outputs, B1 launches =
               rounds·(γ_max·L_draft + L_target) + waves·(L_draft +
-              L_target), B4a = B4b = rounds, and one step key; the dense
-              and paged static runs again at ``--temperature 1.0`` with
-              the same launch counts, their greedy twins' step keys and
-              B3a = B3b = rounds (every greedy and tree run: B3 = 0). The
-              decode rounds of every chunk run under
-              ``torch.cuda.set_sync_debug_mode("error")``.
+              L_target), B4a = B4b = rounds, and one step key (the tree
+              runs at QWEN_CUT depth); the dense (published depth) and
+              paged (QWEN_CUT) static runs again at ``--temperature 1.0``
+              with the same launch counts, their greedy twins' step keys
+              and B3a = B3b = rounds (every greedy and tree run: B3 = 0);
+6. exact_ssm — float32, published widths: zamba2-1.2b (8 layers: one
+              shared-attention segment and a 2-layer tail) ← mamba2-130m
+              (2 layers), vocab 32000, through the server: greedy tokens ==
+              a target-only greedy decode; zamba2 and mamba2-130m
+              self-speculation at acceptance 1.0 with their models' greedy
+              tokens; at temperature 1.0 zamba2 self-speculation accepts
+              ≥ 0.99 and a seed fixes the pair's tokens;
+7. serve_ssm — the full zamba2-1.2b ← mamba2-130m pair in bf16 through
+              ``repro_torch.launch.serve`` (static γ 4, greedy and
+              ``--temperature 1.0``): complete outputs, 2 step keys, B5 =
+              rounds·38 + admissions·(38 + 24), B1 = rounds·6·(γ_max + 2) +
+              admissions·6, B3 = rounds sampled and 0 greedy; the advance
+              loop's share of the decode wall and a profile.
+The decode rounds of every chunk run under
+``torch.cuda.set_sync_debug_mode("error")``.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, the card's
 name and power limit, and the last line ``{"ok": true, "device": {...}}``.
@@ -63,16 +81,30 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "exact", "serve")
+PHASES = ("device", "build", "kernels", "exact", "serve", "exact_ssm",
+          "serve_ssm")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
+HYBRID_LAYERS = 8              # zamba2 depth in exact_ssm: 1 segment + 2
+# depth of the earlier slices' secondary qwen runs (dense AWC, paged
+# T = 1, the tree waves), a quarter of the published 40 / 36 layers, so the
+# whole script stays near 600 s with the SSM slice added; dense static
+# (greedy and T = 1) and paged static greedy keep the published depth
+QWEN_CUT = {"qwen3-14b": 10, "qwen2.5-3b": 9}
+SSM_DRAFT_LAYERS = 2           # mamba2-130m depth in exact_ssm
 B_MAX = 3                      # tree branch bound of the tree runs
 TREE_NOISE = 0.05              # draft = target + N(0, (0.05·std)²) per tensor
 SAMPLED_T = 1.0                # temperature of the sampled runs
 TAIL_CASE = "u = r = 1 - 2^-24"   # planted: thresholds at the last CDF step
 FLAG_SHARE = 0.02              # B3b rows allowed at a CDF step, of all rows
 FLAG_SHARE_INNER = 0.01        # … and of the rows outside TAIL_CASE
+# the kernels each serving phase must launch: the qwen pair's runs (linear,
+# paged, sampled, tree) and the zamba2 ← mamba2-130m runs (B5 in every
+# prefill and verify, B1 in the shared attention, B3 at T > 0)
+SERVE_KERNELS = ("decode_attn", "paged_decode_attn", "tree_argmax",
+                 "tree_accept", "gather_reduce", "cdf_sample")
+SERVE_SSM_KERNELS = ("ssd_scan", "decode_attn", "gather_reduce", "cdf_sample")
 
 
 def emit(obj) -> None:
@@ -346,7 +378,188 @@ def phase_kernels(torch):
     times["sampled"] = time_sampled_kernels(torch, gen, dev)
     emit({"phase": "sampled_kernel_times", "card": smi_line(),
           **times["sampled"]})
+    err["decode_attn_hybrid"], times["hybrid_attn"] = hybrid_attention(
+        torch, gen, dev, tol)
+    err["ssd_scan"] = check_ssd_kernels(torch, gen, dev)
+    times["ssd"] = time_ssd_kernels(torch, gen, dev)
+    emit({"phase": "ssd_kernel_times", "card": smi_line(), **times["ssd"],
+          "decode_attn_hybrid_verify": times["hybrid_attn"]})
     return err, times
+
+
+# ------------------------------------------------- SSM / hybrid slice (B5)
+
+def hybrid_attention(torch, gen, dev, tol):
+    """B1 at the hybrid's shared-attention geometry (zamba2-1.2b: Hkv 32,
+    G 1, hd 64) against its plain version at T 1, 9 and 48 in f32 and
+    bf16, then timed at the verify shape (B 4, T 9, S 114, bf16) by graph
+    replay beside the eager wrapper, the plain version, SDPA and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import (decode_attn_call,
+                                                 decode_attention_grouped)
+    Hkv, G, hd, S = 32, 1, 64, 114
+    err = 0.0
+    for T in (1, 9, 48):
+        B = 2 if T == 48 else 4
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, T, Hkv, G, hd), generator=gen,
+                            device=dev).to(dtype)
+            k = torch.randn((B, S, Hkv, hd), generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn((B, S, Hkv, hd), generator=gen,
+                            device=dev).to(dtype)
+            pm, qp = ragged_pos_map(torch, gen, B, S, T, dev)
+            out = decode_attn_call(q, k, v, pm, qp)
+            ref = decode_attention_grouped(q, k, v, pm, qp)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **tol[dtype])
+            err = max(err, float((out.float() - ref.float()).abs().max()))
+    B, T, dtype = 4, 9, torch.bfloat16
+    q = torch.randn((B, T, Hkv, G, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+    pm = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S) \
+        .contiguous()
+    qp = (S - T + torch.arange(T, device=dev, dtype=torch.int32)) \
+        .expand(B, T).contiguous()
+    qs = q.reshape(B, T, Hkv * G, hd).transpose(1, 2)
+    mask = pm[:, None, None, :] <= qp[:, None, :, None]
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+    call = lambda: decode_attn_call(q, k, v, pm, qp)
+    by = (2 * B * S * Hkv * hd * 2 + 2 * q.numel() * 2 + qp.numel() * 4
+          + pm.numel() * 4)
+    flops = 2 * 2 * B * T * Hkv * G * S * hd
+    t = {"shape": {"B": B, "T": T, "Hkv": Hkv, "G": G, "hd": hd, "S": S,
+                   "dtype": "bfloat16"},
+         "ms": graph_ms(torch, call), "eager_ms": cuda_ms(torch, call),
+         "plain_ms": graph_ms(torch, lambda: decode_attention_grouped(
+             q, k, v, pm, qp), iters=20),
+         "library_ms": graph_ms(torch, sdpa),
+         "bound_ms": max(by / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+         "bound_by": "bytes" if by / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+         else "operations"}
+    emit({"phase": "kernels", "check": "B1 at the hybrid shape == plain",
+          "Hkv": Hkv, "G": G, "hd": hd, "T": [1, 9, 48],
+          "max_abs_err": err,
+          "tolerance": {"float32": 1e-4, "bfloat16": 2e-2}})
+    return err, t
+
+
+# (label, B, S, nh, hd, N, chunk, rows with dt = 0 past these lengths)
+SSD_CASES = (("zamba2 verify", 4, 9, 64, 64, 64, 9, None),
+             ("zamba2 prefill", 1, 48, 64, 64, 64, 48, (37,)),
+             ("zamba2 prefill ragged", 4, 48, 64, 64, 64, 48,
+              (48, 37, 20, 5)),
+             ("mamba2-130m prefill", 1, 48, 24, 64, 128, 48, None),
+             ("multi-chunk", 2, 4096, 24, 64, 128, 128, None),
+             ("ragged", 2, 1000, 24, 64, 128, 128, (1000, 613)),
+             ("reduced verify", 4, 9, 32, 16, 16, 9, None),
+             ("reduced prefill", 4, 48, 32, 16, 16, 16, (48, 30, 17, 5)))
+SSD_TOL = dict(atol=5e-4, rtol=1e-3)    # the reference's kernel tolerance
+
+
+def ssd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype, lens=None):
+    """x ~ N(0, 1), B/C ~ N(0, 1/4) in ``dtype``; dt = softplus(N(0, 1)),
+    zero past ``lens`` (identity steps); A = −exp(N(0, 1)); h_in ~ N(0, 1)
+    (nonzero carried-in state), all as the reference's kernel test."""
+    import torch.nn.functional as F
+    x = torch.randn((B, S, nh, hd), generator=gen, device=dev).to(dtype)
+    Bm = (0.5 * torch.randn((B, S, N), generator=gen, device=dev)).to(dtype)
+    Cm = (0.5 * torch.randn((B, S, N), generator=gen, device=dev)).to(dtype)
+    dt = F.softplus(torch.randn((B, S, nh), generator=gen, device=dev))
+    if lens is not None:
+        ln = torch.tensor(lens, device=dev)
+        dt = torch.where(torch.arange(S, device=dev)[None, :, None]
+                         < ln[:, None, None], dt, torch.zeros_like(dt))
+    A = -torch.exp(torch.randn((nh,), generator=gen, device=dev))
+    h0 = torch.randn((B, nh, hd, N), generator=gen, device=dev)
+    return x, Bm, Cm, dt.contiguous(), A, h0
+
+
+def check_ssd_kernels(torch, gen, dev) -> float:
+    """B5 (through the wrapper the model calls) against its plain chunked
+    version on the same card tensors, f32 and bf16 x/B/C, TF32 off, at the
+    slice's shapes (SSD_CASES): y and h_out within SSD_TOL. Rows with
+    dt = 0 past a length must be exact identities: the ragged cases'
+    h_out rows equal the kernel run on the row's prefix alone, bit for
+    bit. Returns the largest |kernel − plain| over y and h_out."""
+    from repro_torch.kernels.ssd import (ssd_call, ssd_chunked_kernel,
+                                         ssd_chunked_plain)
+    err, cases = 0.0, []
+    for label, B, S, nh, hd, N, chunk, lens in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype, lens)
+            y, h = ssd_chunked_kernel(*args, chunk)
+            yp, hp = ssd_chunked_plain(*args, chunk)
+            torch.cuda.synchronize()
+            for name, a_, b_ in (("y", y, yp), ("h_out", h, hp)):
+                if not torch.isfinite(a_).all():
+                    fail(f"B5 {label} {dtype}: {name} not finite")
+                try:
+                    torch.testing.assert_close(a_, b_, **SSD_TOL)
+                except AssertionError as e:
+                    fail(f"B5 {label} {dtype}: {name} vs plain: {e}")
+                err = max(err, float((a_ - b_).abs().max()))
+            if lens is not None:
+                x, Bm, Cm, dt, A, h0 = args
+                for r, n in enumerate(lens):
+                    _, hr = ssd_call(x[r:r + 1, :n].contiguous(),
+                                     Bm[r:r + 1, :n].contiguous(),
+                                     Cm[r:r + 1, :n].contiguous(),
+                                     dt[r:r + 1, :n].contiguous(), A,
+                                     h0[r:r + 1].contiguous())
+                    if not torch.equal(hr[0], h[r]):
+                        fail(f"B5 {label}: zero-dt rows past {n} are not "
+                             "an exact identity")
+            cases.append(f"{label} {str(dtype)[6:]}")
+    emit({"phase": "kernels", "check": "ssd scan == plain",
+          "cases": cases, "max_abs_err": err, "tolerance": SSD_TOL,
+          "zero_dt_identity": "exact", "allow_tf32": False})
+    return err
+
+
+def ssd_bound(B, S, nh, hd, N, chunk, esize):
+    """The least time of the scan: bytes (x/B/C once in their type, dt, A,
+    h_in once, y and h_out once in f32) over the HBM rate, against the
+    chunked algorithm's multiply-adds over the bf16 tensor rate (per chunk
+    of L: C·Bᵀ 2L²N, and per head the carried-state term and the state
+    update 2·2L·hd·N and the causal quadratic form 2·L(L+1)/2·hd)."""
+    by = (esize * (B * S * nh * hd + 2 * B * S * N) + 4 * B * S * nh
+          + 4 * nh + 4 * 2 * B * nh * hd * N + 4 * B * S * nh * hd)
+    flops = 0
+    for c0 in range(0, S, chunk):
+        L = min(chunk, S - c0)
+        flops += B * (2 * L * L * N + nh * (4 * L * hd * N
+                                            + L * (L + 1) * hd))
+    t_b, t_o = by / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def time_ssd_kernels(torch, gen, dev) -> dict:
+    """B5 at the zamba2 verify shape and at S 4096 (bf16 x/B/C): device
+    time by CUDA-graph replay (``ms``), the eager wrapper (``eager_ms``),
+    the plain version (graph) and the bound; no PyTorch call computes the
+    scan (``library_ms`` null)."""
+    from repro_torch.kernels.ssd import ssd_chunked_kernel, ssd_chunked_plain
+    out = {}
+    for label, B, S, nh, hd, N, chunk in (
+            ("zamba2_verify", 4, 9, 64, 64, 64, 9),
+            ("s4096", 2, 4096, 24, 64, 128, 128)):
+        args = ssd_inputs(torch, gen, dev, B, S, nh, hd, N, torch.bfloat16)
+        call = lambda: ssd_chunked_kernel(*args, chunk)
+        bound, by = ssd_bound(B, S, nh, hd, N, chunk, 2)
+        out[label] = {
+            "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "N": N,
+                      "chunk": chunk, "dtype": "bfloat16"},
+            "ms": graph_ms(torch, call, iters=20 if S > 9 else 50),
+            "eager_ms": cuda_ms(torch, call, iters=20 if S > 9 else 50),
+            "plain_ms": graph_ms(torch, lambda: ssd_chunked_plain(
+                *args, chunk), iters=5 if S > 9 else 20),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+    return out
 
 
 def tree_pos_map(torch, gen, B, S, T, dev):
@@ -625,8 +838,9 @@ def bracket_ok(np, dist64, thresh, a, b, tol=1e-5) -> bool:
 def check_sampled_kernels(torch, gen, dev) -> dict:
     """B3a and B3b against their plain versions on the same card tensors,
     and the glue on the card (kernels) against the glue on CPU copies
-    (plain versions), at (B 4, Γ 8) and V 151936, 50304 and a misaligned
-    1001, in float32 and bfloat16, over planted cases and every active γ.
+    (plain versions), at (B 4, Γ 8) and V 151936, 50304, 32000 (the
+    zamba2 ← mamba2-130m pair's) and a misaligned 1001, in float32 and
+    bfloat16, over planted cases and every active γ.
     p_at/q_at, accept counts and masks exact; the mass within 1e-6 +
     1e-5·mass (float32 sums in another order); tokens exact except where
     the threshold lies at a CDF step (a float64 CDF brackets it for both
@@ -646,7 +860,8 @@ def check_sampled_kernels(torch, gen, dev) -> dict:
              TAIL_CASE]
     mass_err, flagged = 0.0, []
     rows = {"B3b": {"all": 0, "inner": 0}, "glue": {"all": 0, "inner": 0}}
-    for V, misalign in ((151936, False), (50304, False), (1001, True)):
+    for V, misalign in ((151936, False), (50304, False), (32000, False),
+                        (1001, True)):
         for dtype in (torch.float32, torch.bfloat16):
             for case in cases + [f"ag={a}" for a in range(G + 1)]:
                 toks, p, q = sampled_window(torch, gen, B, G, V, dtype, dev,
@@ -728,7 +943,8 @@ def check_sampled_kernels(torch, gen, dev) -> dict:
     cdf_gap = max((f["cdf_gap"] for f in flagged), default=0.0)
     emit({"phase": "kernels", "check": "sampled kernels == plain",
           "rows_flagged": counts, "cases": cases + ["ag=0..8"],
-          "vocab": [151936, 50304, 1001], "dtypes": ["float32", "bfloat16"],
+          "vocab": [151936, 50304, 32000, 1001],
+          "dtypes": ["float32", "bfloat16"],
           "gather_reduce_mass_max_abs_err": mass_err,
           "cdf_sample_token_max_abs_err": token_err,
           "flagged_max_cdf_gap": cdf_gap, "flagged": flagged[:20],
@@ -1204,13 +1420,15 @@ def phase_serve(torch, kernels):
             "--max-batch", "4", "--requests", "8", "--max-new", "32",
             "--gamma-max", str(GAMMA_MAX), "--seed", "0", "--json"]
     t1 = ["--temperature", str(SAMPLED_T)]
-    runs = [("dense_static", ["--policy", "static", "--gamma", "4"]),
-            ("dense_awc", ["--policy", "awc"]),
+    # (name, launcher flags, depth cut to QWEN_CUT)
+    runs = [("dense_static", ["--policy", "static", "--gamma", "4"], False),
+            ("dense_awc", ["--policy", "awc"], True),
             ("paged_static", ["--policy", "static", "--gamma", "4",
-                              "--paged-kv"]),
-            ("dense_static_t1", ["--policy", "static", "--gamma", "4"] + t1),
+                              "--paged-kv"], False),
+            ("dense_static_t1", ["--policy", "static", "--gamma", "4"] + t1,
+             False),
             ("paged_static_t1", ["--policy", "static", "--gamma", "4",
-                                 "--paged-kv"] + t1)]
+                                 "--paged-kv"] + t1, True)]
     greedy_tokens = {}
     # the launcher's request stream (seed 0): its padded prompt bound P
     # fixes the slot length P + max_new + 2γ_max + 18 and so dense parity
@@ -1218,13 +1436,14 @@ def phase_serve(torch, kernels):
                        / 16)
     parity = 4 * math.ceil((P + 32 + 2 * GAMMA_MAX + 18) / 16)
     totals = {k: 0 for k in kernels.LAUNCHES}
-    for name, extra in runs:
+    for name, extra, cut in runs:
         argv = base + extra
         if "--paged-kv" in extra:
             argv += ["--kv-pool-blocks", str(int(0.6 * parity))]
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        out = serve.run(argv)
+        with depth_cut(serve, QWEN_CUT if cut else {}):
+            out = serve.run(argv)
         launches = dict(kernels.LAUNCHES)
         s = out.summary
         eng = out.server.engine
@@ -1242,7 +1461,7 @@ def phase_serve(torch, kernels):
         sampled = "--temperature" in extra
         b3 = s["iterations"] if sampled else 0
         want.update(tree_argmax=0, tree_accept=0, gather_reduce=b3,
-                    cdf_sample=b3)
+                    cdf_sample=b3, ssd_scan=0)
         V = eng.target_cfg.vocab
         full = all(len(r.tokens) == 32 and (r.tokens >= 0).all()
                    and (r.tokens < V).all() for r in out.results)
@@ -1260,7 +1479,8 @@ def phase_serve(torch, kernels):
                  for i in byid]))}
         else:
             greedy_tokens[name] = byid
-        info = {"phase": "serve", "run": name, "requests": s["requests"],
+        info = {"phase": "serve", "run": name, "layers": [L_d, L_t],
+                "requests": s["requests"],
                 "tokens": s["tokens"], "wall_s": s["wall_s"],
                 "tokens_per_s": s["tokens_per_s"],
                 "mean_ttft_ms": s["mean_ttft_ms"],
@@ -1292,15 +1512,36 @@ def phase_serve(torch, kernels):
     return totals
 
 
+class depth_cut:
+    """Within the block the launcher builds the named configs at the given
+    depths (``{name: n_layers}``) and every other setting as published."""
+
+    def __init__(self, serve_mod, layers: dict):
+        self.mod, self.layers = serve_mod, layers
+        self.real = serve_mod.get_config
+
+    def __enter__(self):
+        real, layers = self.real, self.layers
+        self.mod.get_config = lambda name: (
+            dataclasses.replace(real(name), n_layers=layers[name])
+            if name in layers else real(name))
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.get_config = self.real
+
+
 def serve_tree(torch, np, kernels, dev) -> dict:
-    """The full-depth qwen3-14b ← qwen2.5-3b pair in bf16 through tree
-    sessions (γ_max 8, b_max 3), 8 requests × 32 tokens in waves of 4:
+    """The qwen3-14b ← qwen2.5-3b pair in bf16 at the published widths and
+    QWEN_CUT depth through tree sessions (γ_max 8, b_max 3), 8 requests ×
+    32 tokens in waves of 4:
     static γ 4 × b 3, then AWC choosing {γ, b} (max_branches=3). Returns
     the launch counts of both runs."""
     from repro_torch.configs import get_config
     from repro_torch.core.engine import SpecDecodeEngine
     from repro_torch.core.window import StaticWindowPolicy, make_window_policy
-    d_cfg, t_cfg = get_config("qwen2.5-3b"), get_config("qwen3-14b")
+    d_cfg, t_cfg = (dataclasses.replace(get_config(n), n_layers=QWEN_CUT[n])
+                    for n in ("qwen2.5-3b", "qwen3-14b"))
     vocab = t_cfg.vocab                       # the pair shares it
     eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, rtt_ms=10.0,
                            gamma_max=GAMMA_MAX, sync_every=8, device=dev)
@@ -1325,7 +1566,7 @@ def serve_tree(torch, np, kernels, dev) -> dict:
         want = {"decode_attn": rounds * (GAMMA_MAX * L_d + L_t)
                 + waves * (L_d + L_t), "paged_decode_attn": 0,
                 "tree_argmax": tree_n, "tree_accept": tree_n,
-                "gather_reduce": 0, "cdf_sample": 0}
+                "gather_reduce": 0, "cdf_sample": 0, "ssd_scan": 0}
         full = all(t.size == 32 and (t >= 0).all() and (t < vocab).all()
                    for t in res["tokens"].values())
         keys = eng.step_programs()
@@ -1417,6 +1658,229 @@ def profile_summary(prof, run: str, rounds: int, requests: int,
                             for r in rows[:12]]}
 
 
+# ------------------------------------------- SSM / hybrid exact and serve
+
+def ssm_pair_cfgs(full: bool):
+    """zamba2-1.2b target and mamba2-130m draft at the published widths,
+    the vocabularies unified to the smaller (32000) as the launcher does;
+    ``full=False``: float32 at HYBRID_LAYERS / SSM_DRAFT_LAYERS layers."""
+    from repro_torch.configs import get_config
+    t_cfg, d_cfg = get_config("zamba2-1.2b"), get_config("mamba2-130m")
+    d_cfg = dataclasses.replace(d_cfg, vocab=t_cfg.vocab)
+    if full:
+        return t_cfg, d_cfg
+    return (dataclasses.replace(t_cfg, n_layers=HYBRID_LAYERS,
+                                dtype="float32"),
+            dataclasses.replace(d_cfg, n_layers=SSM_DRAFT_LAYERS,
+                                dtype="float32"))
+
+
+def phase_exact_ssm(torch):
+    """Float32 at the published widths: zamba2-1.2b at HYBRID_LAYERS layers
+    (attn_every 6: one shared-attention segment and a 2-layer tail) ←
+    mamba2-130m at SSM_DRAFT_LAYERS, vocab 32000. The server's greedy
+    tokens == the target-only greedy decode; zamba2 and mamba2-130m
+    self-speculation pairs commit their model's greedy tokens at
+    acceptance 1.0; at temperature 1.0 zamba2 self-speculation accepts
+    ≥ 0.99 and two wave runs of the pair with one seed commit identical
+    tokens and acceptance bits."""
+    import numpy as np
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    t_cfg, d_cfg = ssm_pair_cfgs(full=False)
+    eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    reqs = _workload(np, t_cfg.vocab)
+    pol = lambda: StaticWindowPolicy(4)
+    srv, pair = _serve(eng, pol(), reqs)
+    slots = srv._sessions[0].slots_len
+    runs = {"pair": pair}
+    for name, cfg, params in (("self_zamba2", t_cfg, eng.target_params),
+                              ("self_mamba2", d_cfg, eng.draft_params)):
+        self_eng = SpecDecodeEngine(cfg, cfg, draft_params=params,
+                                    target_params=params,
+                                    gamma_max=GAMMA_MAX, device=dev)
+        _, runs[name] = _serve(self_eng, pol(), reqs)
+        del self_eng
+    mismatches = []
+    for r in reqs:
+        refs = {m: _greedy(torch, model, params, r.prompt,
+                           r.max_new_tokens, slots, dev)[0]
+                for m, model, params in (
+                    ("zamba2", eng.target, eng.target_params),
+                    ("mamba2", eng.draft, eng.draft_params))}
+        for name, want in (("pair", "zamba2"), ("self_zamba2", "zamba2"),
+                           ("self_mamba2", "mamba2")):
+            got = runs[name][r.request_id].tokens
+            if not np.array_equal(got, refs[want]):
+                mismatches.append({"run": name, "request": r.request_id})
+    acc = {n: [runs[n][r.request_id].acceptance_rate for r in reqs]
+           for n in runs}
+    # temperature 1.0
+    t1_self = SpecDecodeEngine(t_cfg, t_cfg, draft_params=eng.target_params,
+                               target_params=eng.target_params,
+                               temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                               device=dev)
+    _, t1_res = _serve(t1_self, pol(), reqs)
+    del t1_self
+    t1_acc = float(np.mean([t1_res[r.request_id].acceptance_rate
+                            for r in reqs]))
+    t1_eng = SpecDecodeEngine(d_cfg, t_cfg, draft_params=eng.draft_params,
+                              target_params=eng.target_params,
+                              temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                              device=dev)
+    seeded = [run_sessions(np, t1_eng, reqs, pol(), 0, seed=3)
+              for _ in range(2)]
+    same = all(np.array_equal(seeded[0]["tokens"][i], seeded[1]["tokens"][i])
+               and seeded[0]["bits"][i] == seeded[1]["bits"][i]
+               for i in seeded[0]["tokens"])
+    V = t_cfg.vocab
+    full = all(t.size == 32 and (t >= 0).all() and (t < V).all()
+               for run in seeded for t in run["tokens"].values())
+    info = {"phase": "exact_ssm", "dtype": "float32",
+            "target": f"{t_cfg.name} ({t_cfg.n_layers} layers)",
+            "draft": f"{d_cfg.name} ({d_cfg.n_layers} layers)",
+            "vocab": V, "requests": len(reqs), "gamma": 4,
+            "acceptance": {n: float(np.mean(a)) for n, a in acc.items()},
+            "mismatches": mismatches,
+            "t1_self_spec_acceptance": t1_acc,
+            "t1_pair_acceptance": seeded[0]["acceptance"],
+            "t1_same_seed_identical": same, "t1_all_full_in_range": full,
+            "step_keys": sorted(map(str, eng.step_keys)),
+            "seconds": time.perf_counter() - t0}
+    emit(info)
+    if mismatches:
+        fail(f"SSM/hybrid greedy tokens differ: {mismatches}")
+    for name in ("self_zamba2", "self_mamba2"):
+        if min(acc[name]) != 1.0:
+            fail(f"{name} self-speculation acceptance {acc[name]} != 1.0")
+    if t1_acc < 0.99:
+        fail(f"T=1 zamba2 self-speculation acceptance {t1_acc} < 0.99")
+    if not same or not full:
+        fail("T=1 zamba2 <- mamba2 runs: a seed does not fix the tokens, "
+             "or outputs are incomplete")
+    del eng, t1_eng, srv
+    torch.cuda.empty_cache()
+
+
+class AdvanceTimer:
+    """Host seconds spent inside the split step's advance loop
+    (``_scan_cache_advance``, target and draft), by wrapping it; the
+    wrapped call is the real one, so launch counts are unchanged. With the
+    device mostly idle the host's enqueue time is the round's wall.
+    Information only."""
+
+    def __init__(self):
+        import repro_torch.core.engine as engine_mod
+        self.mod, self.real, self.seconds = (
+            engine_mod, engine_mod._scan_cache_advance, 0.0)
+
+    def __enter__(self):
+        def timed(*args):
+            t = time.perf_counter()
+            out = self.real(*args)
+            self.seconds += time.perf_counter() - t
+            return out
+        self.mod._scan_cache_advance = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._scan_cache_advance = self.real
+
+
+def phase_serve_ssm(torch, kernels) -> dict:
+    """The full zamba2-1.2b ← mamba2-130m pair in bf16 through
+    ``repro_torch.launch.serve`` (the smoke's stream: 8 requests × 32
+    tokens, batch 4, γ_max 8, static γ 4), greedy and at temperature 1.0.
+    Each: complete in-range outputs, 2 step keys (split step, insert), and
+    exact launch counts — B5 = rounds·L_t + admissions·(L_t + L_d) (the
+    verify window and both prefills run the chunked scan; decode steps run
+    the recurrence), B1 = rounds·n_seg·(γ_max + 2) + admissions·n_seg (the
+    shared block in the verify and in each of the γ_max + 1 advance steps,
+    and in the prefill), B3a = B3b = rounds sampled and 0 greedy, the rest
+    0. Then one profile of a short greedy serve."""
+    import numpy as np
+    from repro_torch.launch import serve
+    dev = torch.device("cuda", 0)
+    base = ["--target", "zamba2-1.2b", "--draft", "mamba2-130m",
+            "--full-size", "--max-batch", "4", "--requests", "8",
+            "--max-new", "32", "--gamma-max", str(GAMMA_MAX), "--seed", "0",
+            "--policy", "static", "--gamma", "4", "--json"]
+    t_cfg, d_cfg = ssm_pair_cfgs(full=True)
+    L_t, L_d = t_cfg.n_layers, d_cfg.n_layers
+    n_seg = L_t // t_cfg.attn_every
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    for name, extra in (("hybrid_static", []),
+                        ("hybrid_static_t1",
+                         ["--temperature", str(SAMPLED_T)])):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with AdvanceTimer() as adv:
+            out = serve.run(base + extra)
+        launches = dict(kernels.LAUNCHES)
+        s = out.summary
+        rounds, adm = s["iterations"], s["requests"]
+        b3 = rounds if extra else 0
+        want = {k: 0 for k in kernels.LAUNCHES}
+        want.update(ssd_scan=rounds * L_t + adm * (L_t + L_d),
+                    decode_attn=rounds * n_seg * (GAMMA_MAX + 2)
+                    + adm * n_seg, gather_reduce=b3, cdf_sample=b3)
+        eng = out.server.engine
+        V = eng.target_cfg.vocab
+        full = all(len(r.tokens) == 32 and (r.tokens >= 0).all()
+                   and (r.tokens < V).all() for r in out.results)
+        keys = eng.step_programs()
+        decode_s = sum(sess.decode_wall_s for sess in out.server._sessions)
+        info = {"phase": "serve_ssm", "run": name,
+                "target": eng.target_cfg.name, "draft": eng.draft_cfg.name,
+                "requests": adm, "tokens": s["tokens"], "wall_s": s["wall_s"],
+                "tokens_per_s": s["tokens_per_s"],
+                "mean_ttft_ms": s["mean_ttft_ms"],
+                "mean_tpot_ms": s["mean_tpot_ms"],
+                "mean_acceptance": s["mean_acceptance"],
+                "temperature": s["temperature"], "rounds": rounds,
+                "decode_wall_s": decode_s,
+                "advance_host_s": adv.seconds,
+                "advance_share_of_decode_wall": adv.seconds
+                / max(decode_s, 1e-9),
+                "step_keys": keys, "launches": launches,
+                "expected_launches": want,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 2**30,
+                "all_full_in_range": full,
+                "sync_debug_mode_in_rounds": "error"}
+        emit(info)
+        if adm != 8 or not full:
+            fail(f"{name}: incomplete or out-of-range outputs")
+        if launches != want:
+            fail(f"{name}: kernel launches {launches}, expected {want}")
+        if keys != 2:
+            fail(f"{name}: {keys} step keys, expected 2 (split, insert)")
+        for k in totals:
+            totals[k] += launches[k]
+        del out, eng
+        torch.cuda.empty_cache()
+    from torch.profiler import ProfilerActivity, profile
+    argv = list(base)
+    argv[argv.index("--requests") + 1] = "4"
+    argv[argv.index("--max-new") + 1] = "8"
+    with AdvanceTimer() as adv, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        out = serve.run(argv)
+        torch.cuda.synchronize()
+    s = out.summary
+    line = profile_summary(prof, "hybrid_static 4x8", s["iterations"],
+                           s["requests"], s["wall_s"])
+    line["advance_host_s_profiled"] = adv.seconds
+    emit(line)
+    del out
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1442,11 +1906,23 @@ def main(argv=None) -> int:
     if "exact" in phases:
         phase_exact(torch)
         seconds["exact"] = time.perf_counter() - t0
-    totals = {}
+    totals, idle = {}, []
     t0 = time.perf_counter()
     if "serve" in phases:
         totals = phase_serve(torch, kernels)
+        idle += [k for k in SERVE_KERNELS if not totals[k]]
         seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if "exact_ssm" in phases:
+        phase_exact_ssm(torch)
+        seconds["exact_ssm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if "serve_ssm" in phases:
+        ssm_totals = phase_serve_ssm(torch, kernels)
+        idle += [k for k in SERVE_SSM_KERNELS if not ssm_totals[k]]
+        for k, n in ssm_totals.items():
+            totals[k] = totals.get(k, 0) + n
+        seconds["serve_ssm"] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
     csrc = "src/repro_torch/csrc/"
     replaces = {
@@ -1468,9 +1944,14 @@ def main(argv=None) -> int:
         "cdf_sample": (csrc + "sampled_verify.cu",
                        "src/repro/kernels/verify/verify.py:70",
                        "cdf_sample_kernel"),
+        "ssd_scan": (csrc + "ssd_scan.cu",
+                     "src/repro/kernels/ssd/ssd.py:30", "_ssd_kernel"),
     }
     slice_t, tree_t = times.get("slice", {}), times.get("tree", {})
     tree_t = dict(tree_t, **times.get("sampled", {}))
+    ssd_t = times.get("ssd", {})
+    if ssd_t:
+        tree_t["ssd_scan"] = ssd_t["zamba2_verify"]
     rows = []
     for name, (src, tpu, tpu_fn) in replaces.items():
         t = (dict(slice_t[name], shape=slice_t["shape"]) if name in slice_t
@@ -1484,6 +1965,8 @@ def main(argv=None) -> int:
                "library_ms": t.get("library_ms"), "shape": t.get("shape")}
         if name in times.get("long", {}):
             row["long_context"] = times["long"][name]
+        if name == "ssd_scan" and ssd_t:
+            row["long_context"] = ssd_t["s4096"]
         if name == "cdf_sample" and "cdf_sample_flagged" in err:
             # max_abs_err is in tokens; rows off by it lie at a CDF step
             row["flagged_at_cdf_step"] = err["cdf_sample_flagged"]
@@ -1491,11 +1974,13 @@ def main(argv=None) -> int:
             row["max_abs_err"] = max(err["decode_attn"],
                                      err["decode_attn_tree"])
             row["tree_verify"] = tree_t["decode_attn_tree_verify"]
+        if name == "decode_attn" and "hybrid_attn" in times:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     err["decode_attn_hybrid"])
+            row["hybrid_verify"] = times["hybrid_attn"]
         rows.append(row)
-    if "serve" in phases:
-        idle = [r["name"] for r in rows if not r["launches"]]
-        if idle:
-            fail(f"kernels never launched on the main paths: {idle}")
+    if idle:
+        fail(f"kernels never launched on the main paths: {sorted(set(idle))}")
     emit({"kernels": rows})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -12,6 +12,12 @@ import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
+# families whose layers keep attention KV caches (fused step, tree step);
+# the rest (ssm, hybrid) carry recurrent state and take the split step
+ATTENTION_FAMILIES = ("dense", "moe", "vlm", "encdec")
+# families whose caches a paged KV pool can hold (the reference's rule)
+PAGED_FAMILIES = ("dense", "moe")
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -72,6 +78,14 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return self.arch_type == "ssm"
+
+    @property
+    def has_attention_cache(self) -> bool:
+        return self.arch_type in ATTENTION_FAMILIES
+
+    @property
+    def pageable(self) -> bool:
+        return self.arch_type in PAGED_FAMILIES
 
     @property
     def ssm_d_inner(self) -> int:

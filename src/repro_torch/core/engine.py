@@ -21,9 +21,19 @@ The decode hot loop mirrors the reference ``repro/core/engine.py``:
   runs through the kernel pair B3, and the anchor token of every admission
   is sampled; every draw comes from the session's ``torch.Generator`` on
   the device (the reference's PRNG key), so a seed fixes the tokens.
+- Attention pairs run the fused step: the window's rejected KV stays
+  behind the committed position, masked by ``pos_map``. A recurrent side
+  (ssm or hybrid) cannot be rolled back that way, so such pairs run the
+  split step (the reference's ``_split_step``): the draft proposes and the
+  target verifies FROM the window-start state, which the port's recurrent
+  steps return anew and never write (``models/ssm.py``), then
+  :func:`_scan_cache_advance` re-advances that state over the committed
+  tokens, one masked single-token step per window position. No checkpoint
+  copy is taken: the window-start state is the one the round began with.
 
 The reference counts compiled XLA programs; the port counts the distinct
-step keys it has built (``("fused", γ_max)``, ``("tree", d_max, b_max)``,
+step keys it has built (``("fused", γ_max)``, ``("split", γ_max)``,
+``("tree", d_max, b_max)``,
 ``("insert", …)``, ``("insert-paged", …)``, ``("release",)``) — the
 quantity that must not grow with γ/b changes or admission churn. Capturing
 the step in a CUDA graph is a later item of the ROADMAP.
@@ -41,7 +51,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import resolve_device
 from ..kernels.verify import tree_verify_fused
-from ..models.kvcache import (PagedAttnCache, insert_slot, paged_insert_row,
+from ..models.kvcache import (HybridCacheT, PagedAttnCache, SSMCache,
+                              insert_slot, paged_insert_row,
                               paged_release_slot, tree_commit_cache)
 from ..models.model import build_model
 from .specdec import (SpecDecodeState, _temperature_probs, sample_from_probs,
@@ -50,9 +61,36 @@ from .tree import (TreeSpec, TreeVerifyResult, tree_committed,
                    tree_path_from_winner, tree_propose)
 from .window import StaticWindowPolicy, WindowPolicy
 
-# families whose caches the tree step relocates (pos_map surgery on dense
-# attention rows), as the reference's engine decides
-ATTENTION_FAMILIES = ("dense", "moe", "vlm", "encdec")
+
+def _tree_where(active: torch.Tensor, new, old):
+    """Per-row select of a cache's recurrent leaves: ``new`` where
+    ``active`` (B,) is set, ``old`` elsewhere, as new tensors. Attention
+    caches (a hybrid's shared block included) are written in place by the
+    step, so ``new`` and ``old`` are one cache there: a masked step's writes
+    land past the committed position (pos_map masks them, the next window
+    rewrites them) and it passes through."""
+    if isinstance(new, HybridCacheT):
+        return HybridCacheT(ssm=_tree_where(active, new.ssm, old.ssm),
+                            shared_attn=new.shared_attn)
+    if isinstance(new, SSMCache):
+        sel = lambda n, o: torch.where(
+            active.view(1, -1, *([1] * (n.dim() - 2))), n, o)
+        return SSMCache(conv=sel(new.conv, old.conv),
+                        state=sel(new.state, old.state))
+    return new
+
+
+def _scan_cache_advance(decode_fn, params, cache, adv_tokens: torch.Tensor,
+                        pos: torch.Tensor, num_new: torch.Tensor):
+    """Advance a recurrent cache over the committed window: step t feeds
+    ``adv_tokens[:, t]`` at position ``pos + t`` and keeps the new state
+    only for rows with t < ``num_new`` (a device mask: no host sync). A
+    Python loop over the T = γ_max + 1 positions (the reference's
+    ``lax.scan``)."""
+    for t in range(adv_tokens.shape[1]):
+        _, new = decode_fn(params, adv_tokens[:, t], cache, pos + t)
+        cache = _tree_where(t < num_new, new, cache)
+    return cache
 
 
 def _accumulate(new_tokens: torch.Tensor, num_new: torch.Tensor,
@@ -141,6 +179,8 @@ class SpecDecodeEngine:
         self.rtt_ms = rtt_ms
         self.gamma_max = None if gamma_max is None else int(gamma_max)
         self.sync_every = int(sync_every)
+        self._target_attention = target_cfg.has_attention_cache
+        self._draft_attention = draft_cfg.has_attention_cache
         self.step_keys: set = set()
         self._tree_specs: dict = {}      # (d_max, b_max) → device tables
 
@@ -156,13 +196,36 @@ class SpecDecodeEngine:
 
     # ----------------------------------------------------------------- steps
 
+    def _step_fn(self, gamma_max: int):
+        """The linear step for this pair: fused for two attention models,
+        split when either side is recurrent."""
+        if self._target_attention and self._draft_attention:
+            return self._fused_step(gamma_max)
+        return self._split_step(gamma_max)
+
     def _fused_step(self, gamma_max: int):
-        """The decode step at width ``gamma_max``. Finished/free rows commit
-        nothing and their position freezes; the window KV they still write
-        lands beyond their committed prefix (masked by pos_map) and is
-        overwritten by the next insert into that slot. ``generator`` (the
-        session's) feeds the sampled rounds; greedy rounds draw nothing."""
+        """The decode step at width ``gamma_max`` for an attention pair.
+        Finished/free rows commit nothing and their position freezes; the
+        window KV they still write lands beyond their committed prefix
+        (masked by pos_map) and is overwritten by the next insert into that
+        slot. ``generator`` (the session's) feeds the sampled rounds; greedy
+        rounds draw nothing."""
         self.step_keys.add(("fused", gamma_max))
+        return self._linear_step(gamma_max, split=False)
+
+    def _split_step(self, gamma_max: int):
+        """The decode step at width ``gamma_max`` for a pair with a
+        recurrent side (reference ``_split_step``): the round proposes and
+        verifies from the window-start state (left intact by the recurrent
+        steps), then re-advances the target — and a recurrent draft — over
+        ``[last_token, committed[:num_new − 1]]`` with
+        :func:`_scan_cache_advance`, masked by the lifecycle-clamped
+        ``num_new``: a finished/free row's state never advances. Greedy
+        and sampled (B3) alike."""
+        self.step_keys.add(("split", gamma_max))
+        return self._linear_step(gamma_max, split=True)
+
+    def _linear_step(self, gamma_max: int, split: bool):
         draft_decode = self.draft.decode_step
         target_verify = self.target.verify_step
 
@@ -176,9 +239,24 @@ class SpecDecodeEngine:
             stop = slot_stop_mask(res.num_new, res.n_accepted,
                                   res.new_tokens, cursor, max_new, done,
                                   eos_id)
+            dcache, tcache = res.state.draft_cache, res.state.target_cache
+            if split:
+                # committed[t] enters the state when the next window runs
+                # it, so the advance feeds last_token then the first
+                # num_new − 1 committed tokens; masked steps (t ≥ num_new)
+                # read any valid id in place of the −1 pad
+                adv = torch.cat([state.last_token[:, None],
+                                 res.new_tokens[:, :gamma_max].clamp_min(0)],
+                                dim=1)
+                tcache = _scan_cache_advance(
+                    self.target.decode_step, self.target_params,
+                    state.target_cache, adv, state.pos, stop.num_new)
+                if not self._draft_attention:
+                    dcache = _scan_cache_advance(
+                        draft_decode, self.draft_params, state.draft_cache,
+                        adv, state.pos, stop.num_new)
             new_state = SpecDecodeState(
-                draft_cache=res.state.draft_cache,
-                target_cache=res.state.target_cache,
+                draft_cache=dcache, target_cache=tcache,
                 last_token=torch.where(done, state.last_token,
                                        res.state.last_token),
                 pos=state.pos + stop.num_new)
@@ -202,7 +280,7 @@ class SpecDecodeEngine:
         if self.temperature > 0.0:
             raise NotImplementedError(
                 "tree speculation is greedy-only (temperature 0)")
-        if not all(c.arch_type in ATTENTION_FAMILIES
+        if not all(c.has_attention_cache
                    for c in (self.draft_cfg, self.target_cfg)):
             raise NotImplementedError(
                 "tree speculation needs attention-family draft and target")
@@ -327,13 +405,16 @@ class SpecDecodeEngine:
                  generator: Optional[torch.Generator] = None
                  ) -> SpecDecodeState:
         """Right-padded batched prefill. With ``prompt_lens`` the anchor
-        logit is taken at each sequence's true last prompt token; padded
-        cache slots are overwritten before any query can attend them. The
+        logit is taken at each sequence's true last prompt token, padded
+        cache slots are overwritten before any query can attend them, and
+        recurrent state stops exactly at the true length. The
         anchor token is the target's argmax at temperature 0 and a sample
         (noise from ``generator``) above it."""
         B, S = prompts.shape
-        _, dcache = self.draft.prefill(self.draft_params, prompts, slots)
-        tlg, tcache = self.target.prefill(self.target_params, prompts, slots)
+        _, dcache = self.draft.prefill(self.draft_params, prompts, slots,
+                                       prompt_lens=prompt_lens)
+        tlg, tcache = self.target.prefill(self.target_params, prompts, slots,
+                                          prompt_lens=prompt_lens)
         if prompt_lens is None:
             anchor = tlg[:, -1, :]
             pos = torch.full((B,), S, dtype=torch.int32, device=self.device)

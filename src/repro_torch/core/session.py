@@ -26,9 +26,12 @@ round and every admission draws from it on the device — the draft's
 Gumbel noise, the verify's uniforms, the sampled anchor token — so a seed
 fixes the committed tokens and no draw syncs the host.
 
-With ``max_branches > 0`` the rounds are tree-speculation rounds (the
-engine's ``_tree_step``; dense KV, greedy, colocated). The transport and
-pipelined rounds of the reference come with ROADMAP item A9.
+The rounds run the engine's linear step for the pair (``_step_fn``: fused
+for two attention models, split when a side is ssm or hybrid). With
+``max_branches > 0`` they are tree-speculation rounds (the engine's
+``_tree_step``; dense KV, greedy, colocated, attention families). The
+transport and pipelined rounds of the reference come with ROADMAP item
+A9.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from ..models.kvcache import BlockAllocator, logical_blocks, reset_slot
 # fused-mode tokens stream edge-ward one control round trip per this many
 # committed tokens (the reference's sim/network.DEFAULT_FUSED_CHUNK)
 from .awc.model import DEFAULT_FUSED_CHUNK as FUSED_FLUSH_TOKENS
-from .engine import ATTENTION_FAMILIES, DEFAULT_GAMMA_MAX, GenerationStats
+from .engine import DEFAULT_GAMMA_MAX, GenerationStats
 from .specdec import SpecDecodeState
 from .window import FeatureSnapshot
 
@@ -95,7 +98,9 @@ class DecodeSession:
     ``paged``          KV in a paged block pool: admission reserves only the
                        blocks a request's ``prompt + budget + 2γ`` footprint
                        needs and retirement frees them; greedy tokens equal
-                       the dense layout's (``kv_quantize=False``),
+                       the dense layout's (``kv_quantize=False``). Only the
+                       attention-family sides page (recurrent state has no
+                       positions); a paged session needs one such side,
     ``kv_block_size``  positions per pool block,
     ``kv_pool_blocks`` physical blocks per pool (int, or
                        ``{"draft": n, "target": m}``); None sizes the pool
@@ -130,7 +135,7 @@ class DecodeSession:
             if engine.temperature > 0.0:
                 raise ValueError("tree speculation is greedy-only "
                                  "(temperature 0)")
-            if not all(c.arch_type in ATTENTION_FAMILIES
+            if not all(c.has_attention_cache
                        for c in (engine.draft_cfg, engine.target_cfg)):
                 raise ValueError("tree speculation needs attention-family "
                                  "draft and target")
@@ -172,6 +177,12 @@ class DecodeSession:
         self.kv_block_size = int(kv_block_size)
         self.kv_pool_blocks = kv_pool_blocks
         self.kv_quantize = bool(kv_quantize)
+        self._paged_sides = {"draft": engine.draft_cfg.pageable,
+                             "target": engine.target_cfg.pageable}
+        if self.paged and not any(self._paged_sides.values()):
+            raise ValueError(
+                "paged sessions need at least one attention-family side "
+                "(recurrent state has no positions to page)")
         self._alloc: dict[str, Optional[BlockAllocator]] = {
             "draft": None, "target": None}
         self._slot_blocks: list[Optional[dict]] = [None] * self.capacity
@@ -281,7 +292,7 @@ class DecodeSession:
             "per-slot admission needs max_prompt_len at session creation"
 
         def make_cache(model, side):
-            if self.paged:
+            if self.paged and self._paged_sides[side]:
                 n_blocks = self._pool_blocks(side)
                 self._alloc[side] = BlockAllocator(n_blocks)
                 return model.init_paged_cache(
@@ -432,6 +443,9 @@ class DecodeSession:
                     f"finished requests or grow kv_pool_blocks")
         out = {}
         for side, a in self._alloc.items():
+            if a is None:                     # an unpaged (recurrent) side
+                out[side] = np.zeros((0,), np.int32)
+                continue
             row = np.full((n_log,), -1, np.int32)
             row[:need] = a.alloc(need)
             out[side] = row
@@ -486,7 +500,7 @@ class DecodeSession:
         if tree:
             step = eng._tree_step(self.gamma_max, self.max_branches)
         else:
-            step = functools.partial(eng._fused_step(self.gamma_max),
+            step = functools.partial(eng._step_fn(self.gamma_max),
                                      generator=self._gen)
         chunk_t0 = time.perf_counter()
         chunk_gammas: list[int] = []

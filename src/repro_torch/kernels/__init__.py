@@ -7,7 +7,9 @@
 - verify.tree — greedy tree verify: the per-entry target argmax and the
   longest-accepted-root-path rule (replace ``repro/kernels/verify/tree.py``),
 - verify.verify — sampled verify: the gather/residual-mass pass and the
-  inverse-CDF sample (replace ``repro/kernels/verify/verify.py``).
+  inverse-CDF sample (replace ``repro/kernels/verify/verify.py``),
+- ssd — the Mamba2 SSD chunked scan (replaces
+  ``repro/kernels/ssd/ssd.py``).
 
 The CUDA sources live in ``repro_torch/csrc``. They are compiled at first
 use with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
@@ -46,7 +48,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # show a path ran through the kernels (chip_smoke.py)
 LAUNCHES: dict[str, int] = {"decode_attn": 0, "paged_decode_attn": 0,
                             "tree_argmax": 0, "tree_accept": 0,
-                            "gather_reduce": 0, "cdf_sample": 0}
+                            "gather_reduce": 0, "cdf_sample": 0,
+                            "ssd_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -168,6 +171,8 @@ _SIGNATURES = {
     "gather_reduce_chunk": [],
     # jrow, qrow, use_p, p, q, thresh, token, B, gamma, V, dtype, stream
     "cdf_sample_launch": [_P] * 7 + [_I] * 4 + [_P],
+    # x, Bm, Cm, dt, A, h_in, y, h_out, B, S, nh, hd, N, dtype, stream
+    "ssd_scan_launch": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 

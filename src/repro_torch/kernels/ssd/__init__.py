@@ -1,0 +1,6 @@
+"""The SSD chunked scan (B5, ``csrc/ssd_scan.cu``), the port of the Pallas
+kernel ``repro/kernels/ssd``."""
+
+from .ops import ssd_chunked_kernel
+from .ref import ssd_chunked_plain, ssd_recurrent_reference
+from .ssd import ssd_call

@@ -7,12 +7,22 @@ slot-based scheduler, one draft–target pair colocated on one device.
         --requests 8 --max-new 32 [--arrival-rate 8] [--temperature 0.0] \
         [--paged-kv] [--full-size] [--device cuda|cpu] [--json]
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --target zamba2-1.2b --draft mamba2-130m --full-size
+
 The flags are the reference launcher's one-pair surface that the port
 runs (``repro/launch/serve.py``), plus ``--device`` (the card by default),
 ``--paged-kv``/``--kv-pool-blocks`` (the serving config's paged pool) and
-``--full-size``. Reduced same-family configs by default, as the reference
-launcher; ``--full-size`` serves the published widths and depths in their
-published dtype (the reference's ``build_deployment(reduced=False)``).
+``--full-size``. ``--target``/``--draft`` take any name of the config zoo
+whose family the port runs: dense (qwen, llama2, deepseek, command-r), ssm
+(mamba2-130m) and hybrid (zamba2-1.2b); a pair with an ssm or hybrid side
+runs the engine's split step (verify from the window-start state, then
+re-advance it over the accepted tokens). ``--paged-kv`` pages only the
+attention-family sides (a hybrid's shared attention stays dense) and
+refuses a pair with none. Reduced same-family configs by default, as the
+reference launcher; ``--full-size`` serves the published widths and
+depths in their published dtype (the reference's
+``build_deployment(reduced=False)``).
 Weights are random, drawn on the device from ``--seed``. ``--arrival-rate``
 draws Poisson arrivals (requests/s); TTFT and e2e include queue wait.
 ``--temperature`` > 0 samples (the sampled verify runs kernels B3 every

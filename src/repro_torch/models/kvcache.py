@@ -11,9 +11,15 @@ and stay masked until overwritten).
 - :class:`PagedAttnCache` — the paged layout, a shared ``(L, NB, bs, Hkv,
   hd)`` block pool plus a per-slot ``(B, n_log)`` block table (−1 =
   unmapped), optional int8 K/V with f32 per-entry scales.
+- :class:`SSMCache` — the Mamba2 recurrent state: conv tails ``(L, B,
+  K−1, conv_dim)`` in the model dtype and SSD states ``(L, B, nh, hd, N)``
+  in f32; :class:`HybridCacheT` pairs it with the hybrid's shared-attention
+  :class:`AttnCache` (one layer per shared-block call).
 
-Caches are updated IN PLACE (the reference donates them to its jitted
-steps; here the step writes the buffers it was given).
+Attention caches are updated IN PLACE (the reference donates them to its
+jitted steps; here the step writes the buffers it was given). Recurrent
+state is not: a step returns a new :class:`SSMCache` and leaves the one it
+was given intact (the split step re-advances from the window-start state).
 
 Out-of-range writes (past a non-ring cache, into an unmapped block, past
 the logical length) are DROPPED, never clamped. A torch scatter has no
@@ -392,24 +398,68 @@ class BlockAllocator:
 
 
 # --------------------------------------------------------------------------
+# Recurrent (Mamba2) state and the hybrid cache
+# --------------------------------------------------------------------------
+
+@dataclass
+class SSMCache:
+    """Mamba2 recurrent state, stacked over layers: ``conv`` (L, B, K−1,
+    conv_dim) the short-conv input tails, ``state`` (L, B, nh, hd, N) f32
+    the SSD states."""
+    conv: torch.Tensor
+    state: torch.Tensor
+
+
+def init_ssm_cache(n_layers: int, batch: int, conv_width: int,
+                   conv_dim: int, n_heads: int, head_dim: int,
+                   d_state: int, dtype: torch.dtype, device) -> SSMCache:
+    return SSMCache(
+        conv=torch.zeros((n_layers, batch, conv_width - 1, conv_dim),
+                         dtype=dtype, device=device),
+        state=torch.zeros((n_layers, batch, n_heads, head_dim, d_state),
+                          dtype=torch.float32, device=device))
+
+
+@dataclass
+class HybridCacheT:
+    """Zamba2-style hybrid: the SSM cache of the Mamba2 backbone and one
+    dense attention cache whose L axis counts the shared block's calls
+    (``max(1, n_seg)``)."""
+    ssm: SSMCache
+    shared_attn: AttnCache
+
+
+# --------------------------------------------------------------------------
 # Slot recycling (continuous batching)
 # --------------------------------------------------------------------------
 
-def insert_slot(dst: AttnCache, src: AttnCache, slot: int) -> None:
-    """Write batch row 0 of ``src`` into batch row ``slot`` of ``dst``, in
-    place (one layer-stacked copy per buffer)."""
-    dst.k_buf[:, slot] = src.k_buf[:, 0]
-    dst.v_buf[:, slot] = src.v_buf[:, 0]
-    dst.pm_buf[:, slot] = src.pm_buf[:, 0]
+def _batch_rows(cache) -> list:
+    """(buffer, init fill) of every leaf whose axis 1 is the batch row."""
+    if isinstance(cache, HybridCacheT):
+        return _batch_rows(cache.ssm) + _batch_rows(cache.shared_attn)
+    if isinstance(cache, SSMCache):
+        return [(cache.conv, 0), (cache.state, 0)]
+    if isinstance(cache, AttnCache):
+        return [(cache.k_buf, 0), (cache.v_buf, 0), (cache.pm_buf, -1)]
+    raise TypeError(f"no batch rows in {type(cache).__name__}")
+
+
+def insert_slot(dst, src, slot: int) -> None:
+    """Write batch row 0 of every leaf of ``src`` into batch row ``slot`` of
+    the matching leaf of ``dst``, in place (one layer-stacked copy per
+    leaf): dense attention, SSM and hybrid caches. Paged caches take
+    :func:`paged_insert_row`."""
+    for (d, _), (s, _) in zip(_batch_rows(dst), _batch_rows(src)):
+        d[:, slot] = s[:, 0]
 
 
 def reset_slot(cache, slot: int) -> None:
-    """Scrub batch row ``slot`` of a dense cache back to its init state
-    (k/v zeroed, pos_map −1), in place. Insertion already overwrites a
-    slot fully, so this is hygiene for long-lived sessions. Paged caches
-    are left untouched (their batch dim is the block table, handled by
-    :func:`paged_release_slot`)."""
-    if isinstance(cache, AttnCache):
-        cache.k_buf[:, slot] = 0
-        cache.v_buf[:, slot] = 0
-        cache.pm_buf[:, slot] = -1
+    """Scrub batch row ``slot`` of a dense, SSM or hybrid cache back to its
+    init state (k/v/conv/state zeroed, pos_map −1), in place. Insertion
+    already overwrites a slot fully, so this is hygiene for long-lived
+    sessions. Paged caches are left untouched (their batch dim is the
+    block table, handled by :func:`paged_release_slot`)."""
+    if isinstance(cache, PagedAttnCache):
+        return
+    for buf, fill in _batch_rows(cache):
+        buf[:, slot] = fill

@@ -42,8 +42,12 @@ def test_import_leaves_jax_and_reference_unloaded():
 
 
 def test_no_source_imports_jax_or_reference():
+    """No module of the port, nor the card smoke test beside it, imports
+    ``jax``, ``jaxlib`` or the reference package ``repro``."""
     bad = []
-    for mod, path in _modules():
+    paths = [path for _, path in _modules()] + [PKG.parents[1]
+                                                / "chip_smoke.py"]
+    for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

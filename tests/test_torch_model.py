@@ -366,7 +366,8 @@ def test_prefill_refuses_overlong_prompt(model_pair):
         tm.prefill(tp, torch.zeros((1, 9), dtype=torch.int32), 8)
 
 
-def test_other_families_name_their_roadmap_item():
-    cfg = dataclasses.replace(cfgs("target")[1], arch_type="ssm")
-    with pytest.raises(NotImplementedError, match="A11"):
+@pytest.mark.parametrize("family", ["moe", "vlm", "encdec"])
+def test_other_families_name_their_roadmap_item(family):
+    cfg = dataclasses.replace(cfgs("target")[1], arch_type=family)
+    with pytest.raises(NotImplementedError, match="A12"):
         TModel(cfg, "cpu")
