@@ -8,8 +8,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device   — the card (capability 9.0) and its name/power limit;
 2. build    — the hand-written CUDA kernels (``src/repro_torch/csrc``) built
               with nvcc for sm_90a;
-3. kernels  — B1 (dense), B2 (paged, fp and int8), B1 with the tree
-              ancestor mask, B4a (tree argmax), B4b (tree accept), B3a
+3. kernels  — B1 (dense), B2 (paged, fp and int8, under f32 and bf16
+              queries) against their single-pass and split-and-combine
+              plain versions at the draft-decode, verify and prefill windows
+              (S below one split, S no multiple of the split, a whole split
+              masked), bit-identity of a row across B 1 T 1 and B 4 T 9
+              calls, B1 with the tree ancestor mask (also across a split
+              boundary), B4a (tree argmax), B4b (tree accept), B3a
               (sampled gather/residual mass), B3b (inverse-CDF sample), B1
               at the hybrid's shared-attention shape and B5 (the SSD
               chunked scan, f32 and bf16, eight shapes up to S 4096, zero-dt
@@ -20,7 +25,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               committed token against p_0 (chi-square), then timed against
               the plain version, a library yardstick the port never calls
               (``scaled_dot_product_attention``, ``torch.argmax``; none for
-              B5) and the bound;
+              B5) and the bound — B1/B2 at the verify, draft-decode and
+              hybrid shapes at S 114 and 4096, B2 also over an int8 pool;
 4. exact    — float32, full widths at 2 layers each: the server's greedy
               tokens on dense KV == on paged KV (pool at 60 % of dense
               parity) == a target-only greedy decode, and a self-speculation
@@ -181,7 +187,8 @@ def ragged_pos_map(torch, gen, B, S, T, dev):
     return pm.to(torch.int32).contiguous(), q_pos.to(torch.int32).contiguous()
 
 
-def paged_inputs(torch, gen, B, T, Hkv, G, hd, S, bs, dtype, quant, dev):
+def paged_inputs(torch, gen, B, T, Hkv, G, hd, S, bs, dtype, quant, dev,
+                 dead=None):
     n_log = math.ceil(S / bs)
     NB = B * n_log + 3
     q = torch.randn((B, T, Hkv, G, hd), generator=gen, device=dev).to(dtype)
@@ -202,6 +209,8 @@ def paged_inputs(torch, gen, B, T, Hkv, G, hd, S, bs, dtype, quant, dev):
     table = perm[:B * n_log].reshape(B, n_log).to(torch.int32)
     table[0, 1] = -1                                # unmapped block
     table[-1, -1] = -1                              # unreserved tail
+    if dead is not None:                            # unmapped key range
+        table[:, dead[0] // bs:dead[1] // bs] = -1
     pm = torch.randint(-1, S, (NB, bs), generator=gen, device=dev,
                        dtype=torch.int32)
     p = torch.randint(S // 2, S - T, (B,), generator=gen, device=dev)
@@ -239,14 +248,56 @@ def phase_build(kernels):
                  if "registers" in ln or "spill" in ln]
         info[f"ptxas_{name}"] = lines[:12]
     emit(info)
+    # per entry of the decode-attention kernels: registers, spills, static
+    # shared memory (their ring and metadata are dynamic shared memory)
+    entries = []
+    for name in ("decode_attn.cu", "paged_decode_attn.cu"):
+        entries += ptxas_entries(ptxas.get(name, ""))
+    if entries:
+        emit({"phase": "build", "ptxas_decode_attention": entries,
+              "spill_bytes": sum(e["spill_stores"] + e["spill_loads"]
+                                 for e in entries)})
+
+
+def ptxas_entries(log: str) -> list:
+    """(kernel, registers, spill bytes, static smem) per entry function of
+    an ``nvcc -Xptxas -v`` log, names demangled when c++filt is there."""
+    import re
+    import shutil
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None,
+                   "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+                   "smem_bytes": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            (cur["stack_bytes"], cur["spill_stores"],
+             cur["spill_loads"]) = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(e["kernel"]
+                                                       for e in out),
+                               capture_output=True, text=True).stdout
+        for e, n in zip(out, names.splitlines()):
+            e["kernel"] = re.sub(r"\(.*\)$", "", n.replace(
+                "repro_torch::", ""))
+    return out
     assert lib is not None
 
 
 def phase_kernels(torch):
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attn import (
-        decode_attn_call, decode_attention_grouped, paged_decode_attention,
-        paged_decode_attention_plain)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -255,10 +306,256 @@ def phase_kernels(torch):
     geoms = {"target": (8, 5), "draft": (2, 8)}     # (Hkv, G), hd 128
     tol = {torch.float32: dict(atol=1e-4, rtol=1e-4),
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
-    hd, S, bs = 128, 114, 16
+    err = check_attention_kernels(torch, gen, dev, geoms, tol)
+    bit_identity(torch, gen, dev)
+
+    # ---- timing: every main-path shape of B1/B2 at S 114 and 4096
+    times = {"attn": {}}
+    for label, (B, T, Hkv, G, hd), paged in (
+            ("verify", (4, 9) + geoms["target"] + (128,), True),
+            ("draft", (4, 1) + geoms["draft"] + (128,), True),
+            ("hybrid", (4, 9, 32, 1, 64), False)):
+        for S in (114, 4096):
+            t = attention_times(torch, gen, dev, B, T, Hkv, G, hd, S, paged)
+            times["attn"][f"{label}_s{S}"] = t
+            emit({"phase": "kernel_times", "shape_label": f"{label}_s{S}",
+                  "card": smi_line(), **t})
+    times["slice"], times["long"] = (times["attn"]["verify_s114"],
+                                     times["attn"]["verify_s4096"])
+    err.update(check_tree_kernels(torch, gen, dev, geoms, tol))
+    times["tree"] = time_tree_kernels(torch, gen, dev, geoms)
+    emit({"phase": "tree_kernel_times", "card": smi_line(),
+          **times["tree"]})
+    err.update(check_sampled_kernels(torch, gen, dev))
+    check_sampled_distribution(torch, dev)
+    times["sampled"] = time_sampled_kernels(torch, gen, dev)
+    emit({"phase": "sampled_kernel_times", "card": smi_line(),
+          **times["sampled"]})
+    err["decode_attn_hybrid"] = hybrid_attention(torch, gen, dev, tol)
+    times["hybrid_attn"] = dict(times["attn"]["hybrid_s114"]["decode_attn"],
+                                shape=times["attn"]["hybrid_s114"]["shape"])
+    err["ssd_scan"] = check_ssd_kernels(torch, gen, dev)
+    times["ssd"] = time_ssd_kernels(torch, gen, dev)
+    emit({"phase": "ssd_kernel_times", "card": smi_line(), **times["ssd"]})
+    return err, times
+
+
+# B1/B2 checks: S 114 lies inside one split (no combine pass); S 1300 is no
+# multiple of any split (128 to 512 keys) and its keys [0, 512) are masked
+# (B1: pos −1; B2: unmapped blocks), so at least one whole split is dead
+ATTN_CASES = ((114, None), (1300, (0, 512)))
+
+
+def check_attention_kernels(torch, gen, dev, geoms, tol) -> dict:
+    """B1 and B2 (bf16 or f32 pool, and int8 under f32 and bf16 queries)
+    against the single-pass plain version and the split-and-combine plain
+    version of the kernels' own split plan, at the draft decode, verify
+    and prefill windows of both geometries."""
+    from repro_torch.kernels.decode_attn import (
+        decode_attn_call, decode_attention_grouped, decode_attention_split,
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_attention_split, split_plan)
+    hd, bs = 128, 16
     err = {"decode_attn": 0.0, "paged_decode_attn": 0.0}
-    cases = 0
-    for gname, (Hkv, G) in geoms.items():
+    cases = []
+
+    def check(name, label, dtype, out, refs):
+        torch.cuda.synchronize()
+        for ref in refs:
+            try:
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           **tol[dtype])
+            except AssertionError as e:
+                fail(f"{name} {label} vs plain: {e}")
+        err[name] = max(err[name], float(
+            (out.float() - refs[0].float()).abs().max()))
+
+    for S, dead in ATTN_CASES:
+        for gname, (Hkv, G) in geoms.items():
+            for T in (1, 9, 48):
+                B = 2 if T == 48 else 4
+                for dtype in (torch.bfloat16, torch.float32):
+                    label = f"{gname} S{S} T{T} {str(dtype)[6:]}"
+                    q = torch.randn((B, T, Hkv, G, hd), generator=gen,
+                                    device=dev).to(dtype)
+                    k = torch.randn((B, S, Hkv, hd), generator=gen,
+                                    device=dev).to(dtype)
+                    v = torch.randn((B, S, Hkv, hd), generator=gen,
+                                    device=dev).to(dtype)
+                    pm, qp = ragged_pos_map(torch, gen, B, S, T, dev)
+                    if dead is not None:
+                        pm[:, dead[0]:dead[1]] = -1
+                    split, _ = split_plan(S, hd, dtype, Hkv)
+                    out = decode_attn_call(q, k, v, pm, qp)
+                    check("decode_attn", label, dtype, out, [
+                        decode_attention_grouped(q, k, v, pm, qp),
+                        decode_attention_split(q, k, v, pm, qp, split)])
+                    if not (out[0] == 0).all():
+                        fail(f"B1 {label}: the empty row is not zero")
+                    for quant in (False, True):
+                        args = paged_inputs(torch, gen, B, T, Hkv, G, hd, S,
+                                            bs, dtype, quant, dev, dead)
+                        out = paged_decode_attention(*args, S)
+                        check("paged_decode_attn",
+                              label + (" int8" if quant else ""), dtype,
+                              out, [paged_decode_attention_plain(*args, S),
+                                    paged_decode_attention_split(*args, S)])
+                    cases.append(label)
+    emit({"phase": "kernels", "check": "B1/B2 == plain and split plain",
+          "cases": len(cases), "S": [c[0] for c in ATTN_CASES],
+          "masked_keys": ATTN_CASES[1][1], "paged_int8": ["float32",
+                                                          "bfloat16"],
+          "tolerance": {"float32": 1e-4, "bfloat16": 2e-2},
+          "allow_tf32": False, "max_abs_err": err})
+    return err
+
+
+def bit_identity(torch, gen, dev) -> None:
+    """A query row's output is bit-identical whether computed in a B 1,
+    T 1 call or inside a B 4, T 9 call over the same cache row and q_pos
+    (B1, B2 with a bf16 and an int8 pool), at one split and at three."""
+    from repro_torch.kernels.decode_attn import (decode_attn_call,
+                                                 paged_decode_attention)
+    (Hkv, G), hd, B, T = (8, 5), 128, 4, 9
+    rows = 0
+    for S in (114, 700):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, T, Hkv, G, hd), generator=gen,
+                            device=dev).to(dtype)
+            k = torch.randn((B, S, Hkv, hd), generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn((B, S, Hkv, hd), generator=gen,
+                            device=dev).to(dtype)
+            pm, qp = ragged_pos_map(torch, gen, B, S, T, dev)
+            full = decode_attn_call(q, k, v, pm, qp)
+            pools = [paged_inputs(torch, gen, B, T, Hkv, G, hd, S, 16, dtype,
+                                  quant, dev) for quant in (False, True)]
+            pfull = [paged_decode_attention(*a, S) for a in pools]
+            for b in range(B):
+                for t in (0, 4, 8):
+                    one = decode_attn_call(
+                        q[b:b + 1, t:t + 1].contiguous(), k[b:b + 1],
+                        v[b:b + 1], pm[b:b + 1],
+                        qp[b:b + 1, t:t + 1].contiguous())
+                    if not torch.equal(one[0, 0], full[b, t]):
+                        fail(f"B1 S{S} {dtype}: row ({b}, {t}) differs "
+                             "between a B 1 T 1 call and a B 4 T 9 call")
+                    for a, pf in zip(pools, pfull):
+                        pq, kp, vp, ks, vs, ppm, table, pqp = a
+                        one = paged_decode_attention(
+                            pq[b:b + 1, t:t + 1].contiguous(), kp, vp, ks,
+                            vs, ppm, table[b:b + 1].contiguous(),
+                            pqp[b:b + 1, t:t + 1].contiguous(), S)
+                        if not torch.equal(one[0, 0], pf[b, t]):
+                            fail(f"B2 S{S} {dtype} int8={ks is not None}: "
+                                 f"row ({b}, {t}) differs between a B 1 "
+                                 "T 1 call and a B 4 T 9 call")
+                    rows += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "check": "B1/B2 bit-identical across B and T",
+          "rows": rows, "S": [114, 700], "paged_pools": ["fp", "int8"],
+          "identical": True})
+
+
+def attention_times(torch, gen, dev, B, T, Hkv, G, hd, S, paged) -> dict:
+    """B1 and (``paged``) B2 over a bf16 pool and over an int8 pool, bf16
+    queries, at one shape: device time by CUDA-graph replay (``ms``), the
+    eager wrapper (``eager_ms``), the plain version (graph), SDPA on the
+    same bf16 cache (``library_ms``; null for int8, which no single call
+    computes, its ``sdpa_bf16_ms`` beside it) and the bound (each input
+    read once, the output written once, over the HBM rate; against the
+    flops over the bf16 tensor rate). All keys valid: q_pos = S − T + t."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import (
+        decode_attn_call, decode_attention_grouped, paged_decode_attention,
+        paged_decode_attention_plain)
+    dtype, H = torch.bfloat16, Hkv * G
+    q = torch.randn((B, T, Hkv, G, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+    pm = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S) \
+        .contiguous()
+    qp = (S - T + torch.arange(T, device=dev, dtype=torch.int32)) \
+        .expand(B, T).contiguous()
+    qs = q.reshape(B, T, H, hd).transpose(1, 2)
+    ksd, vsd = k.transpose(1, 2), v.transpose(1, 2)
+    mask = ((pm[:, None, None, :] >= 0)
+            & (pm[:, None, None, :] <= qp[:, None, :, None]))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, ksd, vsd, attn_mask=mask, enable_gqa=G > 1)
+    torch.testing.assert_close(
+        sdpa().transpose(1, 2).float().reshape(B, T, Hkv, G, hd),
+        decode_attention_grouped(q, k, v, pm, qp).float(),
+        atol=2e-2, rtol=2e-2)
+    flops = 2 * 2 * B * T * H * S * hd
+    io = 2 * q.numel() * 2 + qp.numel() * 4
+    it_plain = 20 if S <= 1024 else 10
+
+    def row(call, plain, by, lib):
+        t_b, t_o = by / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        return {"ms": graph_ms(torch, call), "eager_ms": cuda_ms(torch, call),
+                "plain_ms": graph_ms(torch, plain, iters=it_plain),
+                "library_ms": lib, "bound_ms": max(t_b, t_o) * 1e3,
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    lib_ms = graph_ms(torch, sdpa)
+    kv = 2 * B * S * Hkv * hd * 2
+    out = {"shape": {"B": B, "T": T, "Hkv": Hkv, "G": G, "hd": hd, "S": S,
+                     "dtype": "bfloat16"},
+           "decode_attn": row(lambda: decode_attn_call(q, k, v, pm, qp),
+                              lambda: decode_attention_grouped(q, k, v, pm,
+                                                               qp),
+                              kv + io + pm.numel() * 4, lib_ms)}
+    if not paged:
+        return out
+    # paged twin of the same cache: bs 16, identity-ordered blocks
+    bs = 16
+    n_log = math.ceil(S / bs)
+    pad = n_log * bs - S
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad)).reshape(B * n_log, bs, Hkv, hd) \
+        .contiguous()
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(B * n_log, bs, Hkv, hd) \
+        .contiguous()
+    pmp = F.pad(pm, (0, pad), value=-1).reshape(B * n_log, bs).contiguous()
+    table = torch.arange(B * n_log, device=dev,
+                         dtype=torch.int32).reshape(B, n_log)
+    meta = pmp.numel() * 4 + table.numel() * 4
+    pargs = (q, kp, vp, None, None, pmp, table, qp, S)
+    out["paged_decode_attn"] = row(
+        lambda: paged_decode_attention(*pargs),
+        lambda: paged_decode_attention_plain(*pargs), kv + io + meta, lib_ms)
+    # int8 pool: per-(entry, head) absmax scales
+    ks = (kp.float().abs().amax(-1) / 127).clamp(min=1e-8)
+    vs = (vp.float().abs().amax(-1) / 127).clamp(min=1e-8)
+    kq = (kp.float() / ks[..., None]).round().clamp(-127, 127) \
+        .to(torch.int8).contiguous()
+    vq = (vp.float() / vs[..., None]).round().clamp(-127, 127) \
+        .to(torch.int8).contiguous()
+    qargs = (q, kq, vq, ks.contiguous(), vs.contiguous(), pmp, table, qp, S)
+    got = paged_decode_attention(*qargs)
+    torch.testing.assert_close(
+        got.float(), paged_decode_attention_plain(*qargs).float(),
+        atol=2e-2, rtol=2e-2)
+    out["paged_decode_attn_int8"] = dict(row(
+        lambda: paged_decode_attention(*qargs),
+        lambda: paged_decode_attention_plain(*qargs),
+        kv // 2 + 2 * ks.numel() * 4 + io + meta, None),
+        sdpa_bf16_ms=lib_ms)
+    return out
+
+
+# ------------------------------------------------- SSM / hybrid slice (B5)
+
+def hybrid_attention(torch, gen, dev, tol) -> float:
+    """B1 at the hybrid's shared-attention geometry (zamba2-1.2b: Hkv 32,
+    G 1, hd 64) against its plain version at T 1, 9 and 48 in f32 and
+    bf16, at S 114 (one split) and S 1100 (three bf16 splits, five f32);
+    its times come from :func:`attention_times`."""
+    from repro_torch.kernels.decode_attn import (decode_attn_call,
+                                                 decode_attention_grouped)
+    Hkv, G, hd = 32, 1, 64
+    err = 0.0
+    for S in (114, 1100):
         for T in (1, 9, 48):
             B = 2 if T == 48 else 4
             for dtype in (torch.bfloat16, torch.float32):
@@ -274,178 +571,13 @@ def phase_kernels(torch):
                 torch.cuda.synchronize()
                 torch.testing.assert_close(out.float(), ref.float(),
                                            **tol[dtype])
-                if not (out[0] == 0).all():
-                    fail("B1: the empty row is not zero")
-                err["decode_attn"] = max(err["decode_attn"], float(
-                    (out.float() - ref.float()).abs().max()))
-                for quant in (False, True):
-                    args = paged_inputs(torch, gen, B, T, Hkv, G, hd, S, bs,
-                                        dtype, quant, dev)
-                    out = paged_decode_attention(*args, S)
-                    ref = paged_decode_attention_plain(*args, S)
-                    torch.cuda.synchronize()
-                    torch.testing.assert_close(out.float(), ref.float(),
-                                               **tol[dtype])
-                    err["paged_decode_attn"] = max(
-                        err["paged_decode_attn"],
-                        float((out.float() - ref.float()).abs().max()))
-                cases += 1
-    emit({"phase": "kernels", "check": "kernel == plain", "cases": cases,
-          "tolerance": {"float32": 1e-4, "bfloat16": 2e-2},
-          "allow_tf32": False, "max_abs_err": err})
-
-    # ---- timing: the slice's verify shape and one long-context shape
-    times = {}
-    Hkv, G = geoms["target"]
-    for label, S_t in (("slice", 114), ("long", 4096)):
-        B, T, dtype = 4, 9, torch.bfloat16
-        H = Hkv * G
-        q = torch.randn((B, T, Hkv, G, hd), generator=gen,
-                        device=dev).to(dtype)
-        k = torch.randn((B, S_t, Hkv, hd), generator=gen,
-                        device=dev).to(dtype)
-        v = torch.randn((B, S_t, Hkv, hd), generator=gen,
-                        device=dev).to(dtype)
-        ar = torch.arange(S_t, device=dev, dtype=torch.int32)
-        pm = ar.expand(B, S_t).contiguous()
-        qp = (S_t - T + torch.arange(T, device=dev, dtype=torch.int32)
-              ).expand(B, T).contiguous()
-        # SDPA yardstick: same function, GQA-aware, boolean position mask
-        qs = q.reshape(B, T, H, hd).transpose(1, 2)
-        ksd, vsd = k.transpose(1, 2), v.transpose(1, 2)
-        mask = ((pm[:, None, None, :] >= 0)
-                & (pm[:, None, None, :] <= qp[:, None, :, None]))
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qs, ksd, vsd, attn_mask=mask, enable_gqa=True)
-        torch.testing.assert_close(
-            sdpa().transpose(1, 2).float().reshape(B, T, Hkv, G, hd),
-            decode_attention_grouped(q, k, v, pm, qp).float(),
-            atol=2e-2, rtol=2e-2)
-        # paged twin of the same cache: bs 16, identity-ordered blocks
-        bs_t = 16
-        n_log = math.ceil(S_t / bs_t)
-        pad = n_log * bs_t - S_t
-        kp = F.pad(k, (0, 0, 0, 0, 0, pad)).reshape(B * n_log, bs_t, Hkv,
-                                                    hd).contiguous()
-        vp = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(B * n_log, bs_t, Hkv,
-                                                    hd).contiguous()
-        pmp = F.pad(pm, (0, pad), value=-1).reshape(B * n_log,
-                                                    bs_t).contiguous()
-        table = torch.arange(B * n_log, device=dev,
-                             dtype=torch.int32).reshape(B, n_log)
-        pargs = (q, kp, vp, None, None, pmp, table, qp, S_t)
-        kv_bytes = 2 * B * S_t * Hkv * hd * 2
-        io_bytes = 2 * q.numel() * 2 + qp.numel() * 4
-        flops = 2 * 2 * B * T * H * S_t * hd
-        bound = {}
-        bound["decode_attn"] = max(
-            (kv_bytes + io_bytes + pm.numel() * 4) / HBM_BYTES_PER_S,
-            flops / BF16_FLOPS) * 1e3
-        bound["paged_decode_attn"] = max(
-            (kv_bytes + io_bytes + pmp.numel() * 4 + table.numel() * 4)
-            / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        # device times by CUDA-graph replay, as for B3/B4; eager_ms is the
-        # wrapper in an eager loop (host speed shows in it)
-        lib_ms = graph_ms(torch, sdpa)
-        b1_call = lambda: decode_attn_call(q, k, v, pm, qp)
-        b2_call = lambda: paged_decode_attention(*pargs)
-        times[label] = {
-            "shape": {"B": B, "T": T, "Hkv": Hkv, "G": G, "hd": hd,
-                      "S": S_t, "dtype": "bfloat16"},
-            "decode_attn": {
-                "ms": graph_ms(torch, b1_call),
-                "eager_ms": cuda_ms(torch, b1_call),
-                "plain_ms": graph_ms(torch, lambda: decode_attention_grouped(
-                    q, k, v, pm, qp), iters=20),
-                "library_ms": lib_ms, "bound_ms": bound["decode_attn"],
-                "bound_by": "bytes"},
-            "paged_decode_attn": {
-                "ms": graph_ms(torch, b2_call),
-                "eager_ms": cuda_ms(torch, b2_call),
-                "plain_ms": graph_ms(torch, lambda:
-                                     paged_decode_attention_plain(*pargs),
-                                     iters=20),
-                "library_ms": lib_ms,
-                "bound_ms": bound["paged_decode_attn"], "bound_by": "bytes"},
-        }
-    emit({"phase": "kernel_times", "card": smi_line(), **times})
-    err.update(check_tree_kernels(torch, gen, dev, geoms, tol))
-    times["tree"] = time_tree_kernels(torch, gen, dev, geoms)
-    emit({"phase": "tree_kernel_times", "card": smi_line(),
-          **times["tree"]})
-    err.update(check_sampled_kernels(torch, gen, dev))
-    check_sampled_distribution(torch, dev)
-    times["sampled"] = time_sampled_kernels(torch, gen, dev)
-    emit({"phase": "sampled_kernel_times", "card": smi_line(),
-          **times["sampled"]})
-    err["decode_attn_hybrid"], times["hybrid_attn"] = hybrid_attention(
-        torch, gen, dev, tol)
-    err["ssd_scan"] = check_ssd_kernels(torch, gen, dev)
-    times["ssd"] = time_ssd_kernels(torch, gen, dev)
-    emit({"phase": "ssd_kernel_times", "card": smi_line(), **times["ssd"],
-          "decode_attn_hybrid_verify": times["hybrid_attn"]})
-    return err, times
-
-
-# ------------------------------------------------- SSM / hybrid slice (B5)
-
-def hybrid_attention(torch, gen, dev, tol):
-    """B1 at the hybrid's shared-attention geometry (zamba2-1.2b: Hkv 32,
-    G 1, hd 64) against its plain version at T 1, 9 and 48 in f32 and
-    bf16, then timed at the verify shape (B 4, T 9, S 114, bf16) by graph
-    replay beside the eager wrapper, the plain version, SDPA and the
-    bound."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attn import (decode_attn_call,
-                                                 decode_attention_grouped)
-    Hkv, G, hd, S = 32, 1, 64, 114
-    err = 0.0
-    for T in (1, 9, 48):
-        B = 2 if T == 48 else 4
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((B, T, Hkv, G, hd), generator=gen,
-                            device=dev).to(dtype)
-            k = torch.randn((B, S, Hkv, hd), generator=gen,
-                            device=dev).to(dtype)
-            v = torch.randn((B, S, Hkv, hd), generator=gen,
-                            device=dev).to(dtype)
-            pm, qp = ragged_pos_map(torch, gen, B, S, T, dev)
-            out = decode_attn_call(q, k, v, pm, qp)
-            ref = decode_attention_grouped(q, k, v, pm, qp)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(out.float(), ref.float(),
-                                       **tol[dtype])
-            err = max(err, float((out.float() - ref.float()).abs().max()))
-    B, T, dtype = 4, 9, torch.bfloat16
-    q = torch.randn((B, T, Hkv, G, hd), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
-    pm = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S) \
-        .contiguous()
-    qp = (S - T + torch.arange(T, device=dev, dtype=torch.int32)) \
-        .expand(B, T).contiguous()
-    qs = q.reshape(B, T, Hkv * G, hd).transpose(1, 2)
-    mask = pm[:, None, None, :] <= qp[:, None, :, None]
-    sdpa = lambda: F.scaled_dot_product_attention(
-        qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
-    call = lambda: decode_attn_call(q, k, v, pm, qp)
-    by = (2 * B * S * Hkv * hd * 2 + 2 * q.numel() * 2 + qp.numel() * 4
-          + pm.numel() * 4)
-    flops = 2 * 2 * B * T * Hkv * G * S * hd
-    t = {"shape": {"B": B, "T": T, "Hkv": Hkv, "G": G, "hd": hd, "S": S,
-                   "dtype": "bfloat16"},
-         "ms": graph_ms(torch, call), "eager_ms": cuda_ms(torch, call),
-         "plain_ms": graph_ms(torch, lambda: decode_attention_grouped(
-             q, k, v, pm, qp), iters=20),
-         "library_ms": graph_ms(torch, sdpa),
-         "bound_ms": max(by / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-         "bound_by": "bytes" if by / HBM_BYTES_PER_S >= flops / BF16_FLOPS
-         else "operations"}
+                err = max(err, float((out.float() - ref.float())
+                                     .abs().max()))
     emit({"phase": "kernels", "check": "B1 at the hybrid shape == plain",
-          "Hkv": Hkv, "G": G, "hd": hd, "T": [1, 9, 48],
+          "Hkv": Hkv, "G": G, "hd": hd, "T": [1, 9, 48], "S": [114, 1100],
           "max_abs_err": err,
           "tolerance": {"float32": 1e-4, "bfloat16": 2e-2}})
-    return err, t
+    return err
 
 
 # (label, B, S, nh, hd, N, chunk, rows with dt = 0 past these lengths)
@@ -562,12 +694,14 @@ def time_ssd_kernels(torch, gen, dev) -> dict:
     return out
 
 
-def tree_pos_map(torch, gen, B, S, T, dev):
+def tree_pos_map(torch, gen, B, S, T, dev, p=None):
     """Committed positions 0..p−1 with a hole, junk inside the tree region
-    [p, p + T) (the bitmap replaces it) and stale entries past it; the last
-    row's region runs past the cache edge. Returns (pos_map, p)."""
-    p = torch.randint(S // 3, S - T, (B,), generator=gen, device=dev)
-    p[-1] = S - T // 2
+    [p, p + T) (the bitmap replaces it) and stale entries past it; unless
+    the region starts ``p`` are given, they are drawn and the last row's
+    region runs past the cache edge. Returns (pos_map, p)."""
+    if p is None:
+        p = torch.randint(S // 3, S - T, (B,), generator=gen, device=dev)
+        p[-1] = S - T // 2
     ar = torch.arange(S, device=dev)
     pm = torch.where(ar[None, :] < p[:, None], ar[None, :],
                      torch.randint(-1, S, (B, S), generator=gen, device=dev))
@@ -624,6 +758,37 @@ def check_tree_kernels(torch, gen, dev, geoms, tol) -> dict:
             b1_err = max(b1_err, float((out.float() - ref.float())
                                        .abs().max()))
             b1_cases += 1
+    # the target's verify region across the first split boundary: every
+    # row's region holds keys on both sides
+    from repro_torch.kernels.decode_attn import split_plan
+    Hkv, G = geoms["target"]
+    mask, off = spec.win_mask, spec.tree_pos
+    T = mask.shape[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        edge, _ = split_plan(1, hd, dtype, Hkv)
+        B, S_x = 4, edge + 44
+        q = torch.randn((B, T, Hkv, G, hd), generator=gen,
+                        device=dev).to(dtype)
+        k = torch.randn((B, S_x, Hkv, hd), generator=gen,
+                        device=dev).to(dtype)
+        v = torch.randn((B, S_x, Hkv, hd), generator=gen,
+                        device=dev).to(dtype)
+        base = torch.tensor([edge - 6, edge - 1, edge - 20, edge - T + 1],
+                            dtype=torch.int32, device=dev)
+        pm, base = tree_pos_map(torch, gen, B, S_x, T, dev, base)
+        qp = (base[:, None] + off[None, :]).to(torch.int32).contiguous()
+        out = decode_attn_call(q, k, v, pm, qp, win_mask=mask,
+                               win_base=base)
+        ref = decode_attention_grouped(q, k, v, pm, qp, 0, mask, base)
+        torch.cuda.synchronize()
+        try:
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **tol[dtype])
+        except AssertionError as e:
+            fail(f"B1 tree region across split edge {edge}: {e}")
+        b1_err = max(b1_err, float((out.float() - ref.float())
+                                   .abs().max()))
+        b1_cases += 1
 
     # B4a: (B 4, T 25, V 151936) f32, exact against torch.argmax
     B, T, V = 4, T_all, 151936
@@ -1650,9 +1815,17 @@ def profile_summary(prof, run: str, rounds: int, requests: int,
             rows.append((t / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    # B1/B2: the attention kernel and its combine pass
+    attn = [r for r in rows if "attend_kernel" in r[2]
+            or "combine_kernel" in r[2]]
+    attn_ms = sum(r[0] for r in attn)
     return {"phase": "profile", "run": run, "rounds": rounds,
             "requests": requests, "wall_s_profiled": wall_s,
             "device_ms": device_ms,
+            "decode_attention_device_ms": attn_ms,
+            "decode_attention_calls": sum(r[1] for r in attn),
+            "decode_attention_device_ms_per_round":
+                attn_ms / max(rounds, 1),
             "device_busy_share_profiled": device_ms / 1e3 / wall_s,
             "top_kernels": [{"ms": r[0], "calls": r[1], "name": r[2][:90]}
                             for r in rows[:12]]}
@@ -1965,6 +2138,11 @@ def main(argv=None) -> int:
                "library_ms": t.get("library_ms"), "shape": t.get("shape")}
         if name in times.get("long", {}):
             row["long_context"] = times["long"][name]
+        if name in ("decode_attn", "paged_decode_attn") and "attn" in times:
+            row["shapes"] = {
+                lbl: {kn: dict(t[kn], shape=t["shape"]) for kn in t
+                      if kn.startswith(name)}
+                for lbl, t in times["attn"].items() if name in t}
         if name == "ssd_scan" and ssd_t:
             row["long_context"] = ssd_t["s4096"]
         if name == "cdf_sample" and "cdf_sample_flagged" in err:

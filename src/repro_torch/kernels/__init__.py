@@ -153,13 +153,13 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, pos_map, q_pos, win_mask, win_base, out, B, T, Hkv, G, hd,
-    # S, window, Wn, dtype, stream
-    "decode_attn_launch": [_P] * 8 + [_I] * 9 + [_P],
+    # q, k, v, pos_map, q_pos, win_mask, win_base, out, part, B, T, Hkv,
+    # G, hd, S, window, Wn, split, n_split, dtype, stream
+    "decode_attn_launch": [_P] * 9 + [_I] * 11 + [_P],
     # q, k_pool, v_pool, k_scale, v_scale, pos_map, block_table, q_pos,
-    # out, B, T, Hkv, G, hd, bs, n_log, length, window, q_dtype, kv_int8,
-    # stream
-    "paged_decode_attn_launch": [_P] * 9 + [_I] * 11 + [_P],
+    # out, part, B, T, Hkv, G, hd, bs, n_log, length, window, split,
+    # n_split, q_dtype, kv_int8, stream
+    "paged_decode_attn_launch": [_P] * 10 + [_I] * 13 + [_P],
     # logits, out, rows, V, stream
     "tree_argmax_launch": [_P] * 2 + [_I] * 2 + [_P],
     # tok, tgt, parent, tpos, valid, mask, n_acc, winner, bonus, B, T,

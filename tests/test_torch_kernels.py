@@ -110,3 +110,140 @@ def test_paged_plain_matches_pallas(quant, window):
     out = t_paged(t(q), t(k), t(v), t(ks), t(vs), t(pm), t(table), t(q_pos),
                   length, window).numpy()
     np.testing.assert_allclose(out, ref, **TOL)
+
+
+# ---- the split plan and the split-and-combine plain version (B1/B2's
+# CUDA design, computed in PyTorch): held at atol/rtol 1e-5 in float32
+# against the single-pass plain version and the reference's Pallas kernels
+# in interpret mode
+
+from repro_torch.kernels.decode_attn import (  # noqa: E402
+    SPLIT_KEYS, WIDE_KV, decode_attention_grouped, decode_attention_split,
+    paged_decode_attention_split, split_bounds, split_plan)
+
+
+@pytest.mark.parametrize("hd,dtype,n_kv,bs", [
+    (128, torch.bfloat16, 2, None), (64, torch.bfloat16, 32, None),
+    (128, torch.float32, 8, None), (128, torch.bfloat16, 8, 16),
+    (128, torch.int8, 2, 48), (64, torch.float32, 4, 7)])
+def test_split_plan_depends_on_key_index_only(hd, dtype, n_kv, bs):
+    split, _ = split_plan(1, hd, dtype, n_kv, bs)
+    base = SPLIT_KEYS[(hd, dtype)] * (2 if n_kv >= WIDE_KV else 1)
+    assert split >= min(base, 1024)
+    if bs is not None:
+        assert split % bs == 0 and split - min(base, 1024) < bs
+    prev = None
+    for n_keys in (0, 1, split - 1, split, split + 1, 3 * split + 5,
+                   8 * split):
+        sp, n = split_plan(n_keys, hd, dtype, n_kv, bs)
+        assert sp == split                      # not a function of n_keys
+        bounds = split_bounds(n_keys, sp)
+        assert len(bounds) == n == max(1, -(-n_keys // sp))
+        assert all(a % sp == 0 for a, _ in bounds)
+        assert bounds[0][0] == 0 and bounds[-1][1] == n_keys
+        assert all(b0[1] == b1[0] for b0, b1 in zip(bounds, bounds[1:]))
+        if n_keys <= sp:
+            assert n == 1
+        if prev is not None:
+            # a longer cache keeps every earlier split start
+            assert [a for a, _ in bounds[:len(prev)]] == [a for a, _ in prev]
+        prev = bounds
+
+
+@pytest.mark.parametrize(
+    "B,T,H,Hkv,hd,S,window,ring,empty_row,split,dead",
+    [(2, 1, 8, 2, 16, 40, 0, False, False, 8, None),
+     (2, 5, 8, 8, 16, 40, 0, False, True, 16, (16, 32)),
+     (1, 4, 8, 2, 32, 64, 16, False, False, 16, None),
+     (3, 1, 4, 1, 16, 32, 8, True, False, 8, None),
+     (2, 9, 6, 2, 16, 48, 0, False, True, 8, (8, 24)),
+     (2, 3, 4, 2, 16, 24, 0, False, False, 64, None)])
+def test_split_plain_matches_pallas(B, T, H, Hkv, hd, S, window, ring,
+                                    empty_row, split, dead):
+    """Splits of ``split`` keys (S a multiple of 8, the Pallas s_tile), some
+    wholly masked (``dead``), an empty row, ring caches, a sliding window,
+    and one case with a single split."""
+    rng = np.random.default_rng(100 + B + T + S)
+    q = rng.normal(size=(B, T, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+    pm, q_pos = _pos_maps(rng, B, S, T, ring, empty_row)
+    if dead is not None:
+        pm[:, dead[0]:dead[1]] = -1
+    jargs = [jnp.asarray(a) for a in (q, k, v, pm, q_pos)]
+    pallas = np.asarray(decode_attention(*jargs, window, s_tile=8,
+                                         interpret=True)).reshape(
+        B, T, Hkv, H // Hkv, hd)
+    tq = torch.from_numpy(q).reshape(B, T, Hkv, H // Hkv, hd)
+    targs = [torch.from_numpy(a) for a in (k, v, pm, q_pos)]
+    out = decode_attention_split(tq, *targs, split, window).numpy()
+    plain = decode_attention_grouped(tq, *targs, window).numpy()
+    np.testing.assert_allclose(out, pallas, **TOL)
+    np.testing.assert_allclose(out, plain, **TOL)
+    if empty_row:
+        assert (out[0] == 0.0).all()
+
+
+@pytest.mark.parametrize("base", [[5, 13], [12, 0]])
+def test_split_plain_tree_mask_across_split(base):
+    """A tree region [base, base + Wn) that crosses a split boundary (8):
+    the bitmap replaces the position rule inside it, on both sides."""
+    rng = np.random.default_rng(3)
+    B, T, Hkv, G, hd, S, Wn = 2, 5, 2, 3, 16, 32, 7
+    q = torch.from_numpy(rng.normal(size=(B, T, Hkv, G, hd))
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B, S, Hkv, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(B, S, Hkv, hd)).astype(np.float32))
+    wb = torch.tensor(base, dtype=torch.int32)
+    pm = torch.where(torch.arange(S)[None, :] < wb[:, None].long(),
+                     torch.arange(S)[None, :], torch.full((B, S), -1))
+    pm = pm.to(torch.int32)
+    pm[:, 20:] = 99                          # stale past the region
+    mask = torch.from_numpy(np.tril(rng.random((T, Wn)) < 0.6))
+    mask[:, 0] = True
+    q_pos = (wb[:, None] + torch.arange(T)[None, :]).to(torch.int32)
+    out = decode_attention_split(q, k, v, pm, q_pos, 8, 0, win_mask=mask,
+                                 win_base=wb)
+    plain = decode_attention_grouped(q, k, v, pm, q_pos, 0, mask, wb)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 6])
+def test_paged_split_plain_matches_pallas(quant, window):
+    """B2's split version (splits of two 4-key blocks, unmapped blocks, an
+    unreserved tail, int8 with the scales folded) against the reference's
+    paged Pallas kernel in interpret mode and the gather-then-attend plain
+    version."""
+    rng = np.random.default_rng(11 + quant)
+    q, k, v, ks, vs, pm, table, q_pos, length = _paged_inputs(rng, quant)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    ref = np.asarray(paged_decode_attention(
+        j(q), j(k), j(v), j(ks), j(vs), j(pm), j(table), j(q_pos),
+        length=length, window=window, interpret=True))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    args = (t(q), t(k), t(v), t(ks), t(vs), t(pm), t(table), t(q_pos))
+    out = paged_decode_attention_split(*args, length, window,
+                                       split=8).numpy()
+    plain = t_paged(*args, length, window).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(out, plain, **TOL)
+
+
+def test_split_plain_rounds_p_in_bf16():
+    """In bf16 the split version rounds P to bf16 before P·V (as the
+    kernel and the reference's ``_attend_cached`` do): within bf16
+    tolerance of the f32-P plain version, and not equal to it."""
+    rng = np.random.default_rng(5)
+    B, T, Hkv, G, hd, S = 2, 3, 2, 4, 32, 70
+    q = torch.from_numpy(rng.normal(size=(B, T, Hkv, G, hd))).bfloat16()
+    k = torch.from_numpy(rng.normal(size=(B, S, Hkv, hd))).bfloat16()
+    v = torch.from_numpy(rng.normal(size=(B, S, Hkv, hd))).bfloat16()
+    pm = torch.arange(S, dtype=torch.int32).expand(B, S).contiguous()
+    qp = torch.full((B, T), S - 1, dtype=torch.int32)
+    out = decode_attention_split(q, k, v, pm, qp, 32)
+    plain = decode_attention_grouped(q, k, v, pm, qp)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), plain.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert not torch.equal(out, plain)
