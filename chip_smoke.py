@@ -19,14 +19,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               at the hybrid's shared-attention shape and B5 (the SSD
               chunked scan, f32 and bf16, eight shapes up to S 4096, zero-dt
               rows exact identities) against their plain PyTorch versions
-              at the slices' shapes (B4 exactly; B3 exactly up to float32
-              cumsum rounding at a CDF step, those cases counted; B5
-              within atol 5e-4 / rtol 1e-3), the sampled verify's first
-              committed token against p_0 (chi-square), then timed against
-              the plain version, a library yardstick the port never calls
-              (``scaled_dot_product_attention``, ``torch.argmax``; none for
-              B5) and the bound — B1/B2 at the verify, draft-decode and
-              hybrid shapes at S 114 and 4096, B2 also over an int8 pool;
+              at the slices' shapes (B4 exactly; B3 exactly up to
+              rounding at a CDF step, those cases counted; B5
+              within atol 5e-4 / rtol 1e-3), B3b's token of a row the same
+              in a B 1 and a B 4 call and over two runs, the sampled
+              verify's first committed token against p_0 (chi-square),
+              then timed against the plain version, a library yardstick the
+              port never calls (``scaled_dot_product_attention``,
+              ``torch.argmax``; none for B3 and B5) and the bound — B1/B2
+              at the verify, draft-decode and hybrid shapes at S 114 and
+              4096, B2 also over an int8 pool, B5 at the zamba2 verify and
+              prefill shapes and at S 4096;
 4. exact    — float32, full widths at 2 layers each: the server's greedy
               tokens on dense KV == on paged KV (pool at 60 % of dense
               parity) == a target-only greedy decode, and a self-speculation
@@ -248,15 +251,19 @@ def phase_build(kernels):
                  if "registers" in ln or "spill" in ln]
         info[f"ptxas_{name}"] = lines[:12]
     emit(info)
-    # per entry of the decode-attention kernels: registers, spills, static
-    # shared memory (their ring and metadata are dynamic shared memory)
-    entries = []
-    for name in ("decode_attn.cu", "paged_decode_attn.cu"):
-        entries += ptxas_entries(ptxas.get(name, ""))
-    if entries:
-        emit({"phase": "build", "ptxas_decode_attention": entries,
-              "spill_bytes": sum(e["spill_stores"] + e["spill_loads"]
-                                 for e in entries)})
+    # per entry: registers, spills, static shared memory (the tiles, ring
+    # and metadata are dynamic shared memory)
+    for label, names in (("decode_attention", ("decode_attn.cu",
+                                               "paged_decode_attn.cu")),
+                         ("ssd_scan", ("ssd_scan.cu", "ssd_scan_f32.cu")),
+                         ("sampled_verify", ("sampled_verify.cu",))):
+        entries = []
+        for name in names:
+            entries += ptxas_entries(ptxas.get(name, ""))
+        if entries:
+            emit({"phase": "build", f"ptxas_{label}": entries,
+                  "spill_bytes": sum(e["spill_stores"] + e["spill_loads"]
+                                     for e in entries)})
 
 
 def ptxas_entries(log: str) -> list:
@@ -292,7 +299,7 @@ def ptxas_entries(log: str) -> list:
                                capture_output=True, text=True).stdout
         for e, n in zip(out, names.splitlines()):
             e["kernel"] = re.sub(r"\(.*\)$", "", n.replace(
-                "repro_torch::", ""))
+                "repro_torch::", "").replace("(anonymous namespace)::", ""))
     return out
     assert lib is not None
 
@@ -327,6 +334,7 @@ def phase_kernels(torch):
     emit({"phase": "tree_kernel_times", "card": smi_line(),
           **times["tree"]})
     err.update(check_sampled_kernels(torch, gen, dev))
+    check_cdf_sample_determinism(torch, gen, dev)
     check_sampled_distribution(torch, dev)
     times["sampled"] = time_sampled_kernels(torch, gen, dev)
     emit({"phase": "sampled_kernel_times", "card": smi_line(),
@@ -620,7 +628,7 @@ def check_ssd_kernels(torch, gen, dev) -> float:
     bit. Returns the largest |kernel − plain| over y and h_out."""
     from repro_torch.kernels.ssd import (ssd_call, ssd_chunked_kernel,
                                          ssd_chunked_plain)
-    err, cases = 0.0, []
+    err, used, cases = 0.0, 0.0, []
     for label, B, S, nh, hd, N, chunk, lens in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = ssd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype, lens)
@@ -635,6 +643,8 @@ def check_ssd_kernels(torch, gen, dev) -> float:
                 except AssertionError as e:
                     fail(f"B5 {label} {dtype}: {name} vs plain: {e}")
                 err = max(err, float((a_ - b_).abs().max()))
+                used = max(used, float(((a_ - b_).abs() / (
+                    SSD_TOL["atol"] + SSD_TOL["rtol"] * b_.abs())).max()))
             if lens is not None:
                 x, Bm, Cm, dt, A, h0 = args
                 for r, n in enumerate(lens):
@@ -649,6 +659,7 @@ def check_ssd_kernels(torch, gen, dev) -> float:
             cases.append(f"{label} {str(dtype)[6:]}")
     emit({"phase": "kernels", "check": "ssd scan == plain",
           "cases": cases, "max_abs_err": err, "tolerance": SSD_TOL,
+          "tolerance_share_used": used,
           "zero_dt_identity": "exact", "allow_tf32": False})
     return err
 
@@ -670,16 +681,20 @@ def ssd_bound(B, S, nh, hd, N, chunk, esize):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+# (label, B, S, nh, hd, N, chunk) of the timed B5 shapes
+SSD_TIMED = (("zamba2_verify", 4, 9, 64, 64, 64, 9),
+             ("zamba2_prefill", 4, 48, 64, 64, 64, 48),
+             ("s4096", 2, 4096, 24, 64, 128, 128))
+
+
 def time_ssd_kernels(torch, gen, dev) -> dict:
-    """B5 at the zamba2 verify shape and at S 4096 (bf16 x/B/C): device
-    time by CUDA-graph replay (``ms``), the eager wrapper (``eager_ms``),
-    the plain version (graph) and the bound; no PyTorch call computes the
-    scan (``library_ms`` null)."""
+    """B5 at the zamba2 verify and prefill shapes and at S 4096 (bf16
+    x/B/C): device time by CUDA-graph replay (``ms``), the eager wrapper
+    (``eager_ms``), the plain version (graph) and the bound; no PyTorch
+    call computes the scan (``library_ms`` null)."""
     from repro_torch.kernels.ssd import ssd_chunked_kernel, ssd_chunked_plain
     out = {}
-    for label, B, S, nh, hd, N, chunk in (
-            ("zamba2_verify", 4, 9, 64, 64, 64, 9),
-            ("s4096", 2, 4096, 24, 64, 128, 128)):
+    for label, B, S, nh, hd, N, chunk in SSD_TIMED:
         args = ssd_inputs(torch, gen, dev, B, S, nh, hd, N, torch.bfloat16)
         call = lambda: ssd_chunked_kernel(*args, chunk)
         bound, by = ssd_bound(B, S, nh, hd, N, chunk, 2)
@@ -1000,6 +1015,23 @@ def bracket_ok(np, dist64, thresh, a, b, tol=1e-5) -> bool:
     return True
 
 
+def cdf_tokens_f32_running_sum(torch, np, sel, p, q) -> list:
+    """B3b's tokens by the reference Pallas kernel's rule, for comparison
+    only: dist in float32, its running sum in float32 added in token order
+    (numpy's cumsum adds in order), the first v whose sum exceeds thresh,
+    V − 1 when none does."""
+    rows = torch.arange(p.shape[0], device=p.device)
+    p_j = p[rows, sel.jrow.long()].float()
+    q_j = q[rows, sel.qrow.long()].float()
+    dist = torch.where(sel.use_p[:, None] > 0, p_j,
+                       (p_j - q_j).clamp_min(0.0)).cpu().numpy()
+    out = []
+    for b, th in enumerate(sel.thresh.float().cpu().numpy()):
+        hit = np.nonzero(np.cumsum(dist[b], dtype=np.float32) > th)[0]
+        out.append(int(hit[0]) if hit.size else p.shape[-1] - 1)
+    return out
+
+
 def check_sampled_kernels(torch, gen, dev) -> dict:
     """B3a and B3b against their plain versions on the same card tensors,
     and the glue on the card (kernels) against the glue on CPU copies
@@ -1012,8 +1044,11 @@ def check_sampled_kernels(torch, gen, dev) -> dict:
     tokens within 1e-5). Such rows are counted, and the run fails if they
     exceed FLAG_SHARE of a check's rows, or FLAG_SHARE_INNER of its rows
     outside the planted tail case (r = 1 − 2⁻²⁴ puts every threshold
-    within 2⁻²⁴ of the row's last CDF step). Returns the mass error and,
-    for B3b, the largest |kernel token − plain token| with the counts."""
+    within 2⁻²⁴ of the row's last CDF step). The B3b line also reports,
+    without a limit, how many rows' kernel and plain tokens differ from the
+    reference kernel's float32 running-sum rule (the plain version and the
+    kernel sum in float64). Returns the mass error and, for B3b, the
+    largest |kernel token − plain token| with the counts."""
     import numpy as np
     from repro_torch.kernels.verify import (cdf_sample, cdf_sample_plain,
                                             gather_reduce,
@@ -1025,6 +1060,8 @@ def check_sampled_kernels(torch, gen, dev) -> dict:
              TAIL_CASE]
     mass_err, flagged = 0.0, []
     rows = {"B3b": {"all": 0, "inner": 0}, "glue": {"all": 0, "inner": 0}}
+    vs_f32 = {"rows": 0, "kernel_differs": 0, "kernel_differs_outside_tail": 0,
+              "plain_differs": 0, "plain_differs_outside_tail": 0}
     for V, misalign in ((151936, False), (50304, False), (32000, False),
                         (1001, True)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1053,6 +1090,14 @@ def check_sampled_kernels(torch, gen, dev) -> dict:
                 sel = select_rows(*want, u, r, ag)
                 args = (sel.jrow, sel.qrow, sel.use_p, p, q, sel.thresh)
                 tk, tp = cdf_sample(*args), cdf_sample_plain(*args)
+                f32 = cdf_tokens_f32_running_sum(torch, np, sel, p, q)
+                vs_f32["rows"] += B
+                for who, got_t in (("kernel", tk), ("plain", tp)):
+                    n_diff = sum(int(a_) != f_ for a_, f_ in
+                                 zip(got_t.tolist(), f32))
+                    vs_f32[f"{who}_differs"] += n_diff
+                    if case != TAIL_CASE:
+                        vs_f32[f"{who}_differs_outside_tail"] += n_diff
                 # the glue: card (kernels) vs CPU copies (plain versions)
                 cpu = lambda x: None if x is None else x.cpu()
                 gk = verify_window_fused(toks, q, p, u, r, ag)
@@ -1097,17 +1142,12 @@ def check_sampled_kernels(torch, gen, dev) -> dict:
         counts[tag] = {"rows": n["all"], "flagged": len(mine),
                        "rows_outside_tail": n["inner"],
                        "flagged_outside_tail": len(inner)}
-        if (len(mine) > FLAG_SHARE * n["all"]
-                or len(inner) > FLAG_SHARE_INNER * n["inner"]):
-            fail(f"{tag}: {len(mine)} of {n['all']} rows flagged at a CDF "
-                 f"step ({len(inner)} of {n['inner']} outside the tail "
-                 f"case), over the {FLAG_SHARE:.0%} / {FLAG_SHARE_INNER:.0%} "
-                 "limits")
     token_err = max((abs(f["kernel"] - f["plain"]) for f in flagged),
                     default=0)
     cdf_gap = max((f["cdf_gap"] for f in flagged), default=0.0)
     emit({"phase": "kernels", "check": "sampled kernels == plain",
           "rows_flagged": counts, "cases": cases + ["ag=0..8"],
+          "B3b_vs_float32_running_sum": vs_f32,
           "vocab": [151936, 50304, 32000, 1001],
           "dtypes": ["float32", "bfloat16"],
           "gather_reduce_mass_max_abs_err": mass_err,
@@ -1118,8 +1158,49 @@ def check_sampled_kernels(torch, gen, dev) -> dict:
                         "token": "exact unless both bracket the threshold "
                                  "on a float64 CDF within 1e-5",
                         "flagged_share": [FLAG_SHARE, FLAG_SHARE_INNER]}})
+    for tag, n in rows.items():
+        c = counts[tag]
+        if (c["flagged"] > FLAG_SHARE * n["all"]
+                or c["flagged_outside_tail"] > FLAG_SHARE_INNER * n["inner"]):
+            fail(f"{tag}: {c['flagged']} of {n['all']} rows flagged at a CDF "
+                 f"step ({c['flagged_outside_tail']} of {n['inner']} outside "
+                 f"the tail case), over the {FLAG_SHARE:.0%} / "
+                 f"{FLAG_SHARE_INNER:.0%} limits")
     return {"gather_reduce": mass_err, "cdf_sample": token_err,
             "cdf_sample_flagged": dict(counts, max_cdf_gap=cdf_gap)}
+
+
+def check_cdf_sample_determinism(torch, gen, dev) -> None:
+    """B3b's token of a row depends on that row alone: each row of a B 4
+    call (V 151936 and a misaligned 1001, float32 and bfloat16, p rows and
+    residual rows) equals the token of a B 1 call on that row's window,
+    and a second B 4 call gives the same tokens."""
+    from repro_torch.kernels.verify import cdf_sample
+    B, G = 4, GAMMA_MAX
+    checked = 0
+    for V, misalign in ((151936, False), (1001, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            _, p, q = sampled_window(torch, gen, B, G, V, dtype, dev,
+                                     misalign)
+            jrow = torch.tensor([0, 3, G, 5], dtype=torch.int32, device=dev)
+            qrow = jrow.clamp(max=G - 1)
+            use_p = torch.tensor([1, 0, 1, 0], dtype=torch.int32,
+                                 device=dev)
+            thresh = torch.rand((B,), generator=gen, device=dev) * 0.5
+            args = (jrow, qrow, use_p, p, q, thresh)
+            first, again = cdf_sample(*args), cdf_sample(*args)
+            if not torch.equal(first, again):
+                fail(f"B3b V{V} {dtype}: two runs differ: "
+                     f"{first.tolist()} vs {again.tolist()}")
+            for b in range(B):
+                one = cdf_sample(*(a[b:b + 1].contiguous() for a in args))
+                if int(one[0]) != int(first[b]):
+                    fail(f"B3b V{V} {dtype} row {b}: {int(one[0])} in a B 1 "
+                         f"call, {int(first[b])} in a B 4 call")
+                checked += 1
+    emit({"phase": "kernels", "check": "cdf_sample B 1 == B 4, run == run",
+          "rows": checked, "vocab": [151936, 1001],
+          "dtypes": ["float32", "bfloat16"]})
 
 
 def check_sampled_distribution(torch, dev) -> None:
@@ -2145,6 +2226,7 @@ def main(argv=None) -> int:
                 for lbl, t in times["attn"].items() if name in t}
         if name == "ssd_scan" and ssd_t:
             row["long_context"] = ssd_t["s4096"]
+            row["prefill"] = ssd_t["zamba2_prefill"]
         if name == "cdf_sample" and "cdf_sample_flagged" in err:
             # max_abs_err is in tokens; rows off by it lie at a CDF step
             row["flagged_at_cdf_step"] = err["cdf_sample_flagged"]

@@ -25,20 +25,39 @@
 //   sequence; the first v whose running sum of dist crosses thresh
 //   (strictly), dist = p[b, jrow] if use_p else max(p[b, jrow] − q[b, qrow],
 //   0); V − 1 when nothing crosses. The TPU scalar-prefetched jrow/qrow/
-//   use_p into its index maps; here the block loads them itself. The
-//   sequential cumsum becomes two passes over the row. Each of the block's
-//   16 warps owns a contiguous segment; phase 1 sums it (each lane reads 8
-//   contiguous entries of a 256-entry sub-tile: coalesced, 16-byte loads
-//   where the rows are aligned), one block-wide exclusive scan of the 16
-//   segment totals gives each segment its offset, and phase 2 walks every
-//   segment again from its offset, one sub-tile at a time (lane sums, a
-//   warp exclusive scan, each lane its 8 entries), to its first crossing;
-//   the earliest warp's crossing wins. The kernel's CDF is thus a
-//   different float32 rounding from a plain cumsum, so at a threshold
-//   within a few ulps of a CDF step the crossing can move by one token
-//   (chip_smoke.py flags those cases with a float64 CDF). Bound by the
-//   bytes of one p row (and one q row unless use_p) up to the crossing;
-//   one block per sequence leaves most SMs idle at B = 4.
+//   use_p into its index maps and walked the vocab tiles in order with a
+//   running sum; here each block loads them itself. Bound by the bytes of
+//   one p row (and one q row unless use_p) up to the crossing: 0.6–1.2 MB
+//   per sequence at V 151936 f32, ~0.2–0.4 µs per row at 3.35 TB/s, so a
+//   row must be spread over many SMs (one block per sequence left 128 of
+//   132 idle at B = 4). The row is cut into fixed splits of 4096 entries,
+//   a function of the vocab index alone:
+//     1. cdf_total_kernel, grid (B, splits): each split's total (16
+//        contiguous entries per thread, 16-byte loads where the rows are
+//        aligned, then a fixed tree order), 152 blocks at B 4, V 151936;
+//     2. cdf_search_kernel, grid (B): one warp scans the totals in a fixed
+//        order (a shuffle scan, 32 at a time, carried in index order) to
+//        the first split whose running total crosses thresh, its offset
+//        the sum of the splits before it; the block rescans that split
+//        from its offset (lane sums, a fixed block scan, each thread its
+//        16 entries) and the earliest crossing wins through an integer min.
+//        If the split's own float sums never cross (they round otherwise
+//        than its total), the token is the split's last entry with
+//        dist > 0: the CDF step the totals put the threshold at, never a
+//        zero-probability token.
+//   Every sum — the totals, the offsets, the running sum — is float64, and
+//   v crosses when the running sum rounded to float32 exceeds thresh, as
+//   the plain version and PyTorch's CPU cumsum of float32 (float64
+//   accumulation, float32 out) do: the kernel's CDF is the exact one to
+//   float32 rounding. A float32 accumulation in another order than the
+//   plain version's disagreed with it at thresholds on a CDF step in
+//   several rows of the planted last-step case (PERF.md). No float
+//   atomics: every sum has a fixed order, so the token is a function of
+//   the row's inputs alone (the same in a B 1 and a B 4 call, run after
+//   run). Where the threshold itself comes from another sum order (the
+//   glue's mass from B3a against a plain mass), the crossing can still
+//   move by one token at a CDF step (chip_smoke.py flags those cases with
+//   a float64 CDF).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -51,9 +70,10 @@ constexpr int kReduceThreads = 256;
 constexpr int kVecIters = 4;      // 16-byte loads in flight per thread
 constexpr int kChunk = 8192;      // vocab entries per pass-A block
 constexpr int kFinalWarps = 8;    // rows per pass-A combine block
-constexpr int kSampleWarps = 16;  // pass B: one block of 512 per row
-constexpr int kLaneElems = 8;     // pass B: contiguous entries per lane
-constexpr int kSubTile = 32 * kLaneElems;
+constexpr int kLaneElems = 8;     // pass B: entries per load_dist
+constexpr int kSplit = 4096;      // pass B: vocab entries per split
+constexpr int kSplitThreads = 256;
+constexpr int kThreadElems = kSplit / kSplitThreads;  // 16, contiguous
 
 // element loads widened to f32; bf16 travels as its 16 raw bits (bf16 → f32
 // is a 16-bit shift, exact for every value)
@@ -92,7 +112,8 @@ __device__ __forceinline__ void ldv(const uint16_t* p, float* o) {
 }
 
 // lane 0 ends with the warp's sum, added in a fixed tree order
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename F>
+__device__ __forceinline__ F warp_sum(F v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
@@ -102,6 +123,13 @@ __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -232,97 +260,170 @@ __device__ __forceinline__ void load_dist(const T* prow, const T* qrow,
   }
 }
 
+// the selected row of sequence b: p row jrow (clamped to [0, Γ]) and, unless
+// use_p, q row qrow (clamped to [0, Γ)); the glue keeps them in range, the
+// clamp keeps a bad index from faulting
 template <typename T>
-__global__ void __launch_bounds__(kSampleWarps * 32)
-    cdf_sample_kernel(const int* __restrict__ jrow,
-                      const int* __restrict__ qrow,
-                      const int* __restrict__ use_p,
-                      const T* __restrict__ p, const T* __restrict__ q,
-                      const float* __restrict__ thresh,
-                      int* __restrict__ token, int gamma, int V) {
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // the glue keeps the rows in range; clamp so a bad index cannot fault
-  const int jr = min(max(jrow[b], 0), gamma);
-  const int qr = min(max(qrow[b], 0), gamma - 1);
-  const bool up = use_p[b] > 0;
-  const float th = thresh[b];
-  const T* prow = p + ((long long)b * (gamma + 1) + jr) * V;
-  const T* qrw = q + ((long long)b * gamma + qr) * V;
-  const bool vec = ((reinterpret_cast<uintptr_t>(prow) |
-                     (up ? 0 : reinterpret_cast<uintptr_t>(qrw))) & 15) == 0;
-  // warp w owns the contiguous segment [w0, w1), whole sub-tiles of 256
-  const int seg = ((V + kSampleWarps - 1) / kSampleWarps + kSubTile - 1) /
-                  kSubTile * kSubTile;
-  const int w0 = min(V, warp * seg);
-  const int w1 = min(V, w0 + seg);
-  float d[kLaneElems];
+struct SampleRow {
+  const T* p;
+  const T* q;
+  bool up;
+  bool vec;
+  __device__ SampleRow(const int* jrow, const int* qrow, const int* use_p,
+                       const T* pb, const T* qb, int b, int gamma, int V) {
+    const int jr = min(max(jrow[b], 0), gamma);
+    const int qr = min(max(qrow[b], 0), gamma - 1);
+    up = use_p[b] > 0;
+    p = pb + ((long long)b * (gamma + 1) + jr) * V;
+    q = qb + ((long long)b * gamma + qr) * V;
+    vec = ((reinterpret_cast<uintptr_t>(p) |
+            (up ? 0 : reinterpret_cast<uintptr_t>(q))) & 15) == 0;
+  }
+  // this thread's 16 entries of dist from j on (zero at or past end)
+  __device__ __forceinline__ void load(int j, int end, float* d) const {
+    load_dist(p, q, up, vec, j, end, d);
+    load_dist(p, q, up, vec, j + kLaneElems, end, d + kLaneElems);
+  }
+};
 
-  // phase 1: the segment's total
-  float part = 0.f;
-#pragma unroll 4
-  for (int base = w0; base < w1; base += kSubTile) {
-    load_dist(prow, qrw, up, vec, base + lane * kLaneElems, w1, d);
+// inclusive scan over the lanes in a fixed order
+__device__ __forceinline__ double warp_incl_scan(double v, int lane) {
 #pragma unroll
-    for (int e = 0; e < kLaneElems; ++e) part += d[e];
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
   }
-  __shared__ float s_seg[kSampleWarps];
-  __shared__ int s_hit[kSampleWarps];
-  part = warp_sum(part);
-  if (lane == 0) s_seg[warp] = part;
-  __syncthreads();
-  if (warp == 0) {  // exclusive scan of the segment totals in order
-    float x = lane < kSampleWarps ? s_seg[lane] : 0.f;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    float ex = __shfl_up_sync(0xffffffffu, x, 1);
-    if (lane == 0) ex = 0.f;
-    if (lane < kSampleWarps) s_seg[lane] = ex;
-  }
-  __syncthreads();
+  return v;
+}
 
-  // phase 2: rescan the segment from its offset, one sub-tile at a time
-  // (lane sums → warp exclusive scan → each lane walks its 8 entries), to
-  // the first crossing; the block takes the earliest warp's
-  float carry = s_seg[warp];
-  int hit = INT_MAX;
-  for (int base = w0; base < w1; base += kSubTile) {
-    const int j = base + lane * kLaneElems;
-    load_dist(prow, qrw, up, vec, j, w1, d);
-    float sum = 0.f;
+// the float64 running sum crosses thresh when it rounds above it in float32
+__device__ __forceinline__ bool crosses(double run, float th) {
+  return __double2float_rn(run) > th;
+}
+
+// pass B1: totals[b][split] = Σ dist over the split's 4096 entries
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+    cdf_total_kernel(const int* __restrict__ jrow,
+                     const int* __restrict__ qrow,
+                     const int* __restrict__ use_p, const T* __restrict__ p,
+                     const T* __restrict__ q, double* __restrict__ totals,
+                     int gamma, int V, int splits) {
+  const int b = blockIdx.x, split = blockIdx.y;
+  const SampleRow<T> row(jrow, qrow, use_p, p, q, b, gamma, V);
+  const int end = min(V, (split + 1) * kSplit);
+  float d[kThreadElems];
+  row.load(split * kSplit + threadIdx.x * kThreadElems, end, d);
+  double s = 0.0;
 #pragma unroll
-    for (int e = 0; e < kLaneElems; ++e) sum += d[e];
-    float incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    float ex = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) ex = 0.f;
-    float run = carry + ex;
-    int mine = INT_MAX;
-#pragma unroll
-    for (int e = 0; e < kLaneElems; ++e) {
-      run += d[e];
-      if (mine == INT_MAX && j + e < w1 && run > th) mine = j + e;
-    }
-    if (__ballot_sync(0xffffffffu, mine != INT_MAX)) {
-      hit = warp_min(mine);
-      break;  // uniform across the warp
-    }
-    carry += __shfl_sync(0xffffffffu, incl, 31);
-  }
-  if (lane == 0) s_hit[warp] = hit;
+  for (int e = 0; e < kThreadElems; ++e) s += d[e];
+  __shared__ double s_sum[kSplitThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  s = warp_sum(s);
+  if (lane == 0) s_sum[warp] = s;
   __syncthreads();
   if (warp == 0) {
-    int m = lane < kSampleWarps ? s_hit[lane] : INT_MAX;
+    double v = lane < kSplitThreads / 32 ? s_sum[lane] : 0.0;
+    v = warp_sum(v);
+    if (lane == 0) totals[(long long)b * splits + split] = v;
+  }
+}
+
+// pass B2: the split that holds the crossing, then the crossing in it
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+    cdf_search_kernel(const int* __restrict__ jrow,
+                      const int* __restrict__ qrow,
+                      const int* __restrict__ use_p, const T* __restrict__ p,
+                      const T* __restrict__ q,
+                      const float* __restrict__ thresh,
+                      const double* __restrict__ totals,
+                      int* __restrict__ token, int gamma, int V,
+                      int splits) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float th = thresh[b];
+  __shared__ int s_k;
+  __shared__ double s_off;
+  __shared__ double s_scan[kSplitThreads / 32];
+  __shared__ int s_hit[kSplitThreads / 32];
+  __shared__ int s_last[kSplitThreads / 32];
+  if (warp == 0) {
+    const double* tot = totals + (long long)b * splits;
+    double carry = 0.0, off = 0.0;
+    int k = -1;
+    for (int base = 0; base < splits; base += 32) {
+      const int i = base + lane;
+      const double incl =
+          carry + warp_incl_scan(i < splits ? tot[i] : 0.0, lane);
+      double ex = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) ex = carry;
+      const unsigned hit =
+          __ballot_sync(0xffffffffu, i < splits && crosses(incl, th));
+      if (hit) {
+        const int l = __ffs(hit) - 1;
+        k = base + l;
+        off = __shfl_sync(0xffffffffu, ex, l);
+        break;  // uniform across the warp
+      }
+      carry = __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) {
+      s_k = k;
+      s_off = off;
+    }
+  }
+  __syncthreads();
+  const int k = s_k;
+  if (k < 0) {  // nothing crosses
+    if (tid == 0) token[b] = V - 1;
+    return;
+  }
+  const SampleRow<T> row(jrow, qrow, use_p, p, q, b, gamma, V);
+  const int end = min(V, (k + 1) * kSplit);
+  const int j = k * kSplit + tid * kThreadElems;
+  float d[kThreadElems];
+  row.load(j, end, d);
+  double sum = 0.0;
+  int last = -1;
+#pragma unroll
+  for (int e = 0; e < kThreadElems; ++e) {
+    sum += d[e];
+    if (d[e] > 0.f) last = j + e;
+  }
+  // exclusive prefix of the thread sums: warp scan, then the warp totals
+  // scanned in order by warp 0
+  const double incl = warp_incl_scan(sum, lane);
+  if (lane == 31) s_scan[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const double v = lane < kSplitThreads / 32 ? s_scan[lane] : 0.0;
+    const double wi = warp_incl_scan(v, lane);
+    double we = __shfl_up_sync(0xffffffffu, wi, 1);
+    if (lane == 0) we = 0.0;
+    if (lane < kSplitThreads / 32) s_scan[lane] = we;
+  }
+  __syncthreads();
+  double run = s_off + (s_scan[warp] + (incl - sum));
+  int mine = INT_MAX;
+#pragma unroll
+  for (int e = 0; e < kThreadElems; ++e) {
+    run += d[e];
+    if (mine == INT_MAX && j + e < end && crosses(run, th)) mine = j + e;
+  }
+  mine = warp_min(mine);
+  last = warp_max(last);
+  if (lane == 0) {
+    s_hit[warp] = mine;
+    s_last[warp] = last;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int m = lane < kSplitThreads / 32 ? s_hit[lane] : INT_MAX;
+    int l = lane < kSplitThreads / 32 ? s_last[lane] : -1;
     m = warp_min(m);
-    if (lane == 0) token[b] = m == INT_MAX ? V - 1 : m;
+    l = warp_max(l);
+    if (lane == 0) token[b] = m != INT_MAX ? m : (l >= 0 ? l : V - 1);
   }
 }
 
@@ -351,13 +452,20 @@ int launch_gather_reduce(const void* tokens, const void* p, const void* q,
 template <typename T>
 int launch_cdf_sample(const void* jrow, const void* qrow, const void* use_p,
                       const void* p, const void* q, const void* thresh,
-                      void* token, int B, int gamma, int V,
-                      cudaStream_t stream) {
-  cdf_sample_kernel<T><<<B, kSampleWarps * 32, 0, stream>>>(
-      static_cast<const int*>(jrow), static_cast<const int*>(qrow),
-      static_cast<const int*>(use_p), static_cast<const T*>(p),
-      static_cast<const T*>(q), static_cast<const float*>(thresh),
-      static_cast<int*>(token), gamma, V);
+                      void* totals, void* token, int B, int gamma, int V,
+                      int splits, cudaStream_t stream) {
+  const int* jr = static_cast<const int*>(jrow);
+  const int* qr = static_cast<const int*>(qrow);
+  const int* up = static_cast<const int*>(use_p);
+  cdf_total_kernel<T><<<dim3(B, splits), kSplitThreads, 0, stream>>>(
+      jr, qr, up, static_cast<const T*>(p), static_cast<const T*>(q),
+      static_cast<double*>(totals), gamma, V, splits);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cdf_search_kernel<T><<<B, kSplitThreads, 0, stream>>>(
+      jr, qr, up, static_cast<const T*>(p), static_cast<const T*>(q),
+      static_cast<const float*>(thresh), static_cast<const double*>(totals),
+      static_cast<int*>(token), gamma, V, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,21 +500,32 @@ extern "C" int gather_reduce_launch(const void* tokens, const void* p,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Vocab entries per pass-B split: the wrapper sizes the split-total
+// scratch (B, ceil(V / split)) float64 from it.
+extern "C" int cdf_sample_split() { return repro_torch::kSplit; }
+
 // jrow/qrow/use_p (B,) int32; p (B, Γ+1, V), q (B, Γ, V) of one type as
-// above; thresh (B,) float32; token (B,) int32 out.
+// above; thresh (B,) float32; totals (B, splits) float64 scratch with
+// splits = ceil(V / split); token (B,) int32 out.
 extern "C" int cdf_sample_launch(const void* jrow, const void* qrow,
                                  const void* use_p, const void* p,
                                  const void* q, const void* thresh,
-                                 void* token, int B, int gamma, int V,
-                                 int dtype, void* stream) {
+                                 void* totals, void* token, int B, int gamma,
+                                 int V, int splits, int dtype,
+                                 void* stream) {
   if (B <= 0) return 0;
-  if (gamma <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (gamma <= 0 || V <= 0 ||
+      splits != (V + repro_torch::kSplit - 1) / repro_torch::kSplit ||
+      splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return repro_torch::launch_cdf_sample<float>(
-        jrow, qrow, use_p, p, q, thresh, token, B, gamma, V, s);
+        jrow, qrow, use_p, p, q, thresh, totals, token, B, gamma, V, splits,
+        s);
   if (dtype == 1)
     return repro_torch::launch_cdf_sample<uint16_t>(
-        jrow, qrow, use_p, p, q, thresh, token, B, gamma, V, s);
+        jrow, qrow, use_p, p, q, thresh, totals, token, B, gamma, V, splits,
+        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -169,10 +169,14 @@ _SIGNATURES = {
     # stream
     "gather_reduce_launch": [_P] * 7 + [_I] * 5 + [_P],
     "gather_reduce_chunk": [],
-    # jrow, qrow, use_p, p, q, thresh, token, B, gamma, V, dtype, stream
-    "cdf_sample_launch": [_P] * 7 + [_I] * 4 + [_P],
-    # x, Bm, Cm, dt, A, h_in, y, h_out, B, S, nh, hd, N, dtype, stream
-    "ssd_scan_launch": [_P] * 8 + [_I] * 6 + [_P],
+    # jrow, qrow, use_p, p, q, thresh, totals, token, B, gamma, V, splits,
+    # dtype, stream
+    "cdf_sample_launch": [_P] * 8 + [_I] * 5 + [_P],
+    "cdf_sample_split": [],
+    # x, Bm, Cm, dt, A, h_in, y, h_out, states, decay, B, S, nh, hd, N, hg,
+    # dtype, stream
+    "ssd_scan_launch": [_P] * 10 + [_I] * 7 + [_P],
+    "ssd_scan_chunk": [],
 }
 
 

@@ -11,8 +11,8 @@ def ssd_chunked_kernel(x, Bm, Cm, dt, A, h_in, chunk: int):
     """The reference's contract (``repro/kernels/ssd/ops.py:12``): padded
     dt rows are zero (identity steps), y comes back f32 (B, S, nh, hd) and
     h_out f32 (B, nh, hd, N). CPU tensors run :func:`ssd_chunked_plain`
-    over ``chunk``-token chunks; CUDA tensors launch B5 (its own tiles:
-    chunking changes only the float order) or raise."""
+    over ``chunk``-token chunks; CUDA tensors launch B5 (its own 64-token
+    chunks: chunking changes only the float order) or raise."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     if x.device.type == "cpu":

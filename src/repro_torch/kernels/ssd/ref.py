@@ -5,7 +5,10 @@ reference oracles ``repro/kernels/ssd/ref.py`` and of the chunked jnp path
 - :func:`ssd_recurrent_reference` — the literal token-by-token recurrence,
   the ground truth;
 - :func:`ssd_chunked_plain` — the chunked SSD algorithm as einsums, what
-  the CPU path runs and what ``chip_smoke.py`` holds the kernel to.
+  the CPU path runs and what ``chip_smoke.py`` holds the kernel to;
+- :func:`ssd_state_passing_plain` — the kernel's three-phase decomposition
+  (chunk states, a pass over the chunks, outputs) in its chunk of 64
+  tokens; the CPU tests hold it to the reference, and no path runs it.
 
 Shapes: x (B, S, nh, hd); Bm, Cm (B, S, N) shared across heads; dt
 (B, S, nh) f32, already softplus'ed; A (nh,) f32, negative; h_in
@@ -76,5 +79,59 @@ def ssd_chunked_plain(x, Bm, Cm, dt, A, h_in, chunk: int):
                                dt[:, sl].float(), A.float(), h)
         ys.append(y)
     y = (torch.cat(ys, dim=1)[:, :S] if ys
+         else x.new_zeros(x.shape, dtype=torch.float32))
+    return y, h
+
+
+KERNEL_CHUNK = 64   # the CUDA kernel's chunk (``csrc/ssd_scan.cuh`` kL)
+
+
+def ssd_state_passing_plain(x, Bm, Cm, dt, A, h_in,
+                            chunk: int = KERNEL_CHUNK):
+    """The scan as B5 computes it, in three phases over ``chunk``-token
+    chunks whose boundaries depend on the token index alone:
+
+    1. per (b, chunk, head) the chunk's own contribution
+       Σ_s exp(Lc_L − Lc_s)·dt_s·x_s ⊗ B_s and its decay exp(Lc_L), Lc the
+       cumsum of A·dt inside the chunk (the last chunk is cut at S, its
+       Lc_L the last real row's);
+    2. the chunks in index order, h ← decay·h + contribution: each chunk's
+       starting state, and h_out;
+    3. per chunk y = exp(Lc)·(C·h_startᵀ) + ((C·Bᵀ) ∘ causal ∘
+       exp(Lc_t − Lc_s) ∘ dt_s)·x, C·Bᵀ once per (b, chunk) for every head.
+
+    Returns (y (B, S, nh, hd) f32, h_out (B, nh, hd, N) f32)."""
+    B, S, nh, hd = x.shape
+    h = h_in.float()
+    A = A.float()
+    contrib, decay, parts = [], [], []
+    for c0 in range(0, S, chunk):                         # phase 1
+        sl = slice(c0, min(S, c0 + chunk))
+        x32, B32 = x[:, sl].float(), Bm[:, sl].float()
+        Lc = torch.cumsum(A[None, None, :] * dt[:, sl].float(), dim=1)
+        w = torch.exp(Lc[:, -1:, :] - Lc) * dt[:, sl].float()
+        contrib.append(torch.einsum("blhd,blh,bln->bhdn", x32, w, B32))
+        decay.append(torch.exp(Lc[:, -1, :]))
+        parts.append((sl, Lc))
+    starts = []
+    for cb, dc in zip(contrib, decay):                    # phase 2
+        starts.append(h)
+        h = dc[..., None, None] * h + cb
+    ys = []
+    for (sl, Lc), h0 in zip(parts, starts):               # phase 3
+        C32, B32 = Cm[:, sl].float(), Bm[:, sl].float()
+        L = Lc.shape[1]
+        cb = torch.einsum("btn,bsn->bts", C32, B32)
+        seg = Lc[:, :, None, :] - Lc[:, None, :, :]       # (B, t, s, nh)
+        causal = torch.ones((L, L), dtype=torch.bool,
+                            device=x.device).tril()[None, :, :, None]
+        scores = torch.where(causal, cb[..., None] * torch.exp(seg)
+                             * dt[:, sl].float()[:, None, :, :],
+                             torch.zeros_like(seg))
+        y_state = torch.einsum("btn,bhdn->bthd", C32, h0) \
+            * torch.exp(Lc)[..., None]
+        ys.append(y_state + torch.einsum("btsh,bshd->bthd", scores,
+                                         x[:, sl].float()))
+    y = (torch.cat(ys, dim=1) if ys
          else x.new_zeros(x.shape, dtype=torch.float32))
     return y, h

@@ -12,6 +12,28 @@ import torch
 from .. import check_launch, count_launch, dtype_code, library, stream_ptr
 
 DIMS = (16, 32, 64, 128)        # head dims and state sizes the kernel takes
+MIN_BLOCKS = 128                # blocks a call should fill (132 SMs)
+
+
+def heads_per_block(B: int, n_chunks: int, nh: int) -> int:
+    """Heads one block covers (it computes C·Bᵀ once for them, then runs
+    them one after another). One for a call of one chunk: there a block's
+    chain of dependent steps sets the time, and a second head in series
+    costs more than the shared C·Bᵀ saves. Else the largest of 8, 4, 2
+    dividing nh that still leaves ``MIN_BLOCKS`` blocks, else 1. The result
+    does not depend on it: each head runs the same code on the same C·Bᵀ."""
+    if n_chunks <= 1:
+        return 1
+    for hg in (8, 4, 2):
+        if nh % hg == 0 and B * max(n_chunks, 1) * nh // hg >= MIN_BLOCKS:
+            return hg
+    return 1
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernel loads 16 bytes at a time: a view off a 16-byte boundary
+    is copied."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ssd_call(x: torch.Tensor,      # (B, S, nh, hd) f32 / bf16
@@ -22,7 +44,9 @@ def ssd_call(x: torch.Tensor,      # (B, S, nh, hd) f32 / bf16
              h_in: torch.Tensor    # (B, nh, hd, N) f32
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch B5: (y (B, S, nh, hd) f32, h_out (B, nh, hd, N) f32). The
-    kernel walks its own 32-token tiles and takes any S (no padding)."""
+    kernel cuts S into its own 64-token chunks (no padding): one launch for
+    S ≤ 64, else the chunk-state, state-passing and output kernels over
+    scratch allocated here."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_call launches on cuda, not {x.device}")
     if x.dim() != 4:
@@ -47,12 +71,25 @@ def ssd_call(x: torch.Tensor,      # (B, S, nh, hd) f32 / bf16
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=x.device)
-    h_out = torch.empty((B, nh, hd, N), dtype=torch.float32, device=x.device)
-    err = library().ssd_scan_launch(
+    lib = library()
+    n_chunks = -(-S // lib.ssd_scan_chunk())
+    hg = heads_per_block(B, n_chunks, nh)
+    x, Bm, Cm, h_in = map(_aligned, (x, Bm, Cm, h_in))
+    dev = x.device
+    y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=dev)
+    h_out = torch.empty((B, nh, hd, N), dtype=torch.float32, device=dev)
+    states = decay = None
+    if n_chunks > 1:    # chunk contributions, then their starting states
+        states = torch.empty((B, n_chunks, nh, hd, N), dtype=torch.float32,
+                             device=dev)
+        decay = torch.empty((B, n_chunks, nh), dtype=torch.float32,
+                            device=dev)
+    err = lib.ssd_scan_launch(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
-        A.data_ptr(), h_in.data_ptr(), y.data_ptr(), h_out.data_ptr(), B, S,
-        nh, hd, N, code, stream_ptr(x))
+        A.data_ptr(), h_in.data_ptr(), y.data_ptr(), h_out.data_ptr(),
+        None if states is None else states.data_ptr(),
+        None if decay is None else decay.data_ptr(), B, S, nh, hd, N, hg,
+        code, stream_ptr(x))
     check_launch("ssd_scan", err)
     count_launch("ssd_scan")
     return y, h_out

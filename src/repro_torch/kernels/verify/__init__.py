@@ -7,7 +7,7 @@
 
 from .ops import tree_verify_fused, verify_window_fused
 from .ref import (VerifyOut, accept_rule, cdf_sample_plain,
-                  gather_reduce_plain, tree_accept_plain, tree_argmax_plain,
-                  verify_reference)
+                  cdf_sample_split_plain, gather_reduce_plain,
+                  tree_accept_plain, tree_argmax_plain, verify_reference)
 from .tree import MAX_ENTRIES, tree_accept, tree_argmax
 from .verify import cdf_sample, gather_reduce

@@ -8,7 +8,7 @@
 
 The CPU tests and the engine on CPU tensors run them; on the card
 ``chip_smoke.py`` holds the kernels to them (B4 exactly; B3 exactly up to
-float32 cumsum rounding at a CDF step)."""
+rounding at a CDF step)."""
 
 from __future__ import annotations
 
@@ -120,6 +120,14 @@ def gather_reduce_plain(tokens: torch.Tensor,   # (B, Γ) int32
     return p_at, q_at, mass
 
 
+def _selected_dist(jrow, qrow, use_p, p, q):
+    """(B, V) float32: p_jrow if use_p else max(p_jrow − q_qrow, 0)."""
+    rows = torch.arange(jrow.shape[0], device=p.device)
+    p_j = p[rows, jrow.long()].float()
+    q_j = q[rows, qrow.long()].float()
+    return torch.where(use_p[:, None] > 0, p_j, (p_j - q_j).clamp_min(0.0))
+
+
 def cdf_sample_plain(jrow: torch.Tensor,    # (B,) int32 p row
                      qrow: torch.Tensor,    # (B,) int32 q row
                      use_p: torch.Tensor,   # (B,) int32, > 0: sample p_j
@@ -128,14 +136,53 @@ def cdf_sample_plain(jrow: torch.Tensor,    # (B,) int32 p row
                      thresh: torch.Tensor   # (B,) float32
                      ) -> torch.Tensor:
     """The plain version of B3b → (B,) int32: the first v whose running
-    float32 sum of dist crosses ``thresh`` (strictly), where dist = p_jrow
-    if use_p else max(p_jrow − q_qrow, 0); V − 1 when nothing crosses."""
+    sum of dist, rounded to float32, crosses ``thresh`` (strictly), where
+    dist = p_jrow if use_p else max(p_jrow − q_qrow, 0); V − 1 when
+    nothing crosses. The running sum accumulates in float64: PyTorch's CPU
+    cumsum of float32 does so (the result is bit for bit the same), while
+    its CUDA cumsum scans in float32, so without it the plain token would
+    depend on the device."""
     B, V = jrow.shape[0], p.shape[-1]
-    rows = torch.arange(B, device=p.device)
-    p_j = p[rows, jrow.long()].float()
-    q_j = q[rows, qrow.long()].float()
-    dist = torch.where(use_p[:, None] > 0, p_j, (p_j - q_j).clamp_min(0.0))
-    hit = torch.cumsum(dist, dim=-1) > thresh.reshape(B, 1)
+    dist = _selected_dist(jrow, qrow, use_p, p, q)
+    hit = torch.cumsum(dist, dim=-1, dtype=torch.float64).float() \
+        > thresh.reshape(B, 1)
     token = torch.where(hit.any(-1), torch.argmax(hit.to(torch.int8), -1),
                         V - 1)
+    return token.to(torch.int32)
+
+
+CDF_SPLIT = 4096    # B3b's vocab split (``csrc/sampled_verify.cu`` kSplit)
+
+
+def cdf_sample_split_plain(jrow, qrow, use_p, p, q, thresh,
+                           split: int = CDF_SPLIT) -> torch.Tensor:
+    """B3b's decomposition → (B,) int32, the same token as
+    :func:`cdf_sample_plain` up to rounding at a CDF step: the selected row
+    cut into fixed ``split``-entry vocab splits; each split's total; the
+    first split whose running total (in index order) crosses ``thresh``,
+    its offset the total of the splits before it; in that split the first v
+    whose running sum from the offset crosses, or, if the split's own sums
+    never do, its last entry with dist > 0; V − 1 when no split crosses.
+    Sums are float64 and a running sum crosses when it rounds above
+    ``thresh`` in float32, as the kernel and a CPU cumsum do."""
+    B, V = jrow.shape[0], p.shape[-1]
+    dist = _selected_dist(jrow, qrow, use_p, p, q).double()
+    n = -(-V // split)
+    parts = torch.nn.functional.pad(dist, (0, n * split - V)).reshape(
+        B, n, split)
+    incl = torch.cumsum(parts.sum(-1), dim=-1)               # (B, n)
+    th = thresh.reshape(B).float()
+    token = torch.full((B,), V - 1, dtype=torch.int64, device=p.device)
+    for b in range(B):
+        cross = torch.nonzero(incl[b].float() > th[b]).flatten()
+        if cross.numel() == 0:
+            continue
+        k = int(cross[0])
+        off = incl[b, k - 1] if k > 0 else incl.new_zeros(())
+        d = parts[b, k]
+        hit = torch.nonzero((off + torch.cumsum(d, 0)).float()
+                            > th[b]).flatten()
+        pos = torch.nonzero(d > 0).flatten()
+        if hit.numel() or pos.numel():
+            token[b] = k * split + int(hit[0] if hit.numel() else pos[-1])
     return token.to(torch.int32)

@@ -75,7 +75,9 @@ def cdf_sample(jrow: torch.Tensor,     # (B,) int32 p row in [0, Γ]
                ) -> torch.Tensor:
     """Pass B of the sampled verify → (B,) int32: the first v whose running
     sum of the selected distribution crosses ``thresh``; V − 1 when none
-    does."""
+    does. The kernel sums fixed 4096-entry vocab splits over many blocks,
+    then searches the split that holds the crossing
+    (:func:`.ref.cdf_sample_split_plain` is that order in PyTorch)."""
     if _device(jrow, "cdf_sample") == "cpu":
         return cdf_sample_plain(jrow, qrow, use_p, p, q, thresh)
     B = jrow.shape[0]
@@ -88,11 +90,16 @@ def cdf_sample(jrow: torch.Tensor,     # (B,) int32 p row in [0, Γ]
             raise ValueError(f"{name} must be {dt} (B,)")
     _same_device(jrow, jrow=jrow, qrow=qrow, use_p=use_p, p=p, q=q,
                  thresh=thresh)
+    V = p.shape[-1]
+    lib = library()
+    splits = -(-V // lib.cdf_sample_split())
+    totals = torch.empty((B, splits), dtype=torch.float64,
+                         device=jrow.device)
     token = torch.empty((B,), dtype=torch.int32, device=jrow.device)
-    err = library().cdf_sample_launch(
+    err = lib.cdf_sample_launch(
         jrow.data_ptr(), qrow.data_ptr(), use_p.data_ptr(), p.data_ptr(),
-        q.data_ptr(), thresh.data_ptr(), token.data_ptr(), B, q.shape[1],
-        p.shape[-1], code, stream_ptr(jrow))
+        q.data_ptr(), thresh.data_ptr(), totals.data_ptr(), token.data_ptr(),
+        B, q.shape[1], V, splits, code, stream_ptr(jrow))
     check_launch("cdf_sample", err)
     count_launch("cdf_sample")
     return token

@@ -39,6 +39,7 @@ from repro_torch.core.engine import SpecDecodeEngine
 from repro_torch.core.session import DecodeSession
 from repro_torch.core.window import StaticWindowPolicy, WindowDecision
 from repro_torch.kernels.verify import (cdf_sample, cdf_sample_plain,
+                                        cdf_sample_split_plain,
                                         gather_reduce, gather_reduce_plain,
                                         verify_reference, verify_window_fused)
 from repro_torch.launch import serve
@@ -239,6 +240,82 @@ def test_bf16_inputs_equal_their_float32_values():
     _assert_out_equal(got, j_fused(jnp.asarray(toks), jb(qb), jb(pb),
                                    jnp.asarray(u), jnp.asarray(r),
                                    interpret=True))
+
+
+def _thresholds_off_steps(dist, rng):
+    """Per row, a token v drawn among entries with dist ≥ 1e-3 of the row's
+    largest and the threshold halfway up its CDF step (float64): every
+    float32 sum order crosses at v. An all-zero row (q == p) never
+    crosses: V − 1."""
+    d64 = dist.astype(np.float64)
+    cdf = np.cumsum(d64, -1)
+    tok, th = [], []
+    for b in range(d64.shape[0]):
+        if d64[b].max() == 0:
+            tok.append(d64.shape[1] - 1)
+            th.append(0.0)
+            continue
+        v = int(rng.choice(np.flatnonzero(d64[b] >= 1e-3 * d64[b].max())))
+        lo = cdf[b, v - 1] if v else 0.0
+        tok.append(v)
+        th.append((lo + cdf[b, v]) / 2)
+    return np.array(tok), np.array(th, np.float32)
+
+
+@pytest.mark.parametrize("V,split", [(1024, 4096), (10000, 4096),
+                                     (2000, 512), (1536, 256)])
+def test_split_sample_plain_matches_pallas_interpret(V, split):
+    """B3b's split decomposition (split totals, fixed-order offsets, the
+    search in the crossing split) against the reference's Pallas
+    cdf_sample in interpret mode and the plain cumsum version, on p rows
+    and residual rows, thresholds halfway up a CDF step: tokens equal. A
+    threshold past the row's mass gives V − 1."""
+    B, G = 4, 3
+    _, q, p, _, _ = _window(B, G, V, seed=V + split)
+    rng = np.random.default_rng(split)
+    for use in (0, 1):
+        jrow = rng.integers(0, G + 1, B).astype(np.int32)
+        qrow = np.minimum(jrow, G - 1).astype(np.int32)
+        use_p = np.full(B, use, np.int32)
+        pj, qj = p[np.arange(B), jrow], q[np.arange(B), qrow]
+        dist = pj if use else np.maximum(pj - qj, 0.0)
+        tok, thresh = _thresholds_off_steps(dist, rng)
+        thresh[-1] = 2.0                      # nothing crosses
+        tok[-1] = V - 1
+        args = tuple(map(t, (jrow, qrow, use_p, p, q, thresh)))
+        got = cdf_sample_split_plain(*args, split=split)
+        want = cdf_sample_call(jnp.asarray(jrow), jnp.asarray(qrow),
+                               jnp.asarray(use_p), _pad(p), _pad(q),
+                               jnp.asarray(thresh)[:, None], TILE,
+                               interpret=True)[:, 0]
+        np.testing.assert_array_equal(got.numpy(), tok)
+        np.testing.assert_array_equal(np.minimum(np.asarray(want), V - 1),
+                                      tok)
+        np.testing.assert_array_equal(cdf_sample_plain(*args).numpy(), tok)
+
+
+def test_cdf_plain_is_the_float32_cumsum_rule_on_cpu():
+    """The plain B3b accumulates in float64 on every device; on the CPU that
+    is what a float32 cumsum does, so its tokens there are those of the
+    float32 rule, thresholds at CDF steps included."""
+    B, G, V = 4, 3, 5000
+    _, q, p, _, _ = _window(B, G, V, seed=11)
+    rng = np.random.default_rng(12)
+    for use in (0, 1):
+        jrow = rng.integers(0, G + 1, B).astype(np.int32)
+        qrow = np.minimum(jrow, G - 1).astype(np.int32)
+        use_p = np.full(B, use, np.int32)
+        dist = t(p[np.arange(B), jrow] if use else
+                 np.maximum(p[np.arange(B), jrow] - q[np.arange(B), qrow],
+                            0.0))
+        cdf = torch.cumsum(dist, -1)
+        for thresh in (cdf[:, 1234], cdf[:, -1] * (1 - 2.0 ** -24),
+                       torch.rand(B, generator=_gen(use)) * cdf[:, -1]):
+            hit = cdf > thresh[:, None]
+            want = torch.where(hit.any(-1), hit.int().argmax(-1), V - 1)
+            got = cdf_sample_plain(t(jrow), t(qrow), t(use_p), t(p), t(q),
+                                   thresh.contiguous())
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_wrappers_refuse_other_devices():

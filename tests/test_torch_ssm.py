@@ -40,9 +40,11 @@ from repro_torch.configs.base import ModelConfig as TCfg
 from repro_torch.core.engine import SpecDecodeEngine
 from repro_torch.core.session import DecodeSession
 from repro_torch.core.window import StaticWindowPolicy, WindowDecision
-from repro_torch.kernels.ssd import (ssd_call, ssd_chunked_kernel,
-                                     ssd_chunked_plain,
-                                     ssd_recurrent_reference)
+from repro_torch.kernels.ssd import (KERNEL_CHUNK, ssd_call,
+                                     ssd_chunked_kernel, ssd_chunked_plain,
+                                     ssd_recurrent_reference,
+                                     ssd_state_passing_plain)
+from repro_torch.kernels.ssd.ssd import heads_per_block
 from repro_torch.launch import serve
 from repro_torch.models import ssm as tssm
 from repro_torch.models.kvcache import HybridCacheT, reset_slot
@@ -161,6 +163,55 @@ def test_scan_wrappers_refuse_other_devices():
         ssd_call(x, Bm, Cm, dt, A, h0)
     with pytest.raises(ValueError, match="chunk"):
         ssd_chunked_kernel(x, Bm, Cm, dt, A, h0, 0)
+
+
+# (B, S, nh, hd, N, reference chunk, zero dt past these lengths): one
+# kernel chunk at the verify and prefill windows, and several (a ragged last
+# chunk, rows past a length) as a long prefill runs them
+STATE_PASSING_CASES = {
+    "verify": (2, 9, 3, 16, 16, 9, None),
+    "prefill": (2, 48, 3, 16, 32, 16, (48, 29)),
+    "ragged": (3, 150, 2, 16, 16, 32, (150, 70, 13)),
+    "multi-chunk": (2, 3 * KERNEL_CHUNK, 2, 32, 16, 64, None),
+}
+
+
+@pytest.mark.parametrize("case", list(STATE_PASSING_CASES))
+def test_state_passing_plain_matches_reference(case):
+    """B5's three-phase decomposition (chunk states, the pass over the
+    chunks, outputs) in its 64-token chunks against the reference's Pallas
+    kernel in interpret mode and its recurrence, f32, atol 1e-4."""
+    B, S, nh, hd, N, chunk, lens = STATE_PASSING_CASES[case]
+    args = _scan_inputs(B, S, nh, hd, N, seed=S + nh, lens=lens)
+    y, h = ssd_state_passing_plain(*map(t, args))
+    for want in (j_ssd_kernel(*map(j, args), chunk, interpret=True),
+                 j_recurrent(*map(j, args))):
+        _close(y, want[0])
+        _close(h, want[1])
+
+
+def test_state_passing_zero_dt_rows_are_identities():
+    """Rows with dt = 0 past a length leave h_out bit for bit the state of
+    the prefix alone, across a chunk edge and over whole zero-dt chunks."""
+    lens = (150, 70, 13, 64)
+    x, Bm, Cm, dt, A, h0 = map(t, _scan_inputs(4, 150, 2, 16, 16, seed=7,
+                                               lens=lens))
+    _, h = ssd_state_passing_plain(x, Bm, Cm, dt, A, h0)
+    for r, n in enumerate(lens):
+        _, h_pre = ssd_state_passing_plain(
+            x[r:r + 1, :n], Bm[r:r + 1, :n], Cm[r:r + 1, :n],
+            dt[r:r + 1, :n], A, h0[r:r + 1])
+        assert torch.equal(h_pre[0], h[r]), n
+
+
+@pytest.mark.parametrize("shape,hg", [
+    ((4, 1, 64), 1),      # zamba2 verify / prefill: 256 blocks of 1 head
+    ((4, 1, 24), 1),      # mamba2-130m verify: 96 blocks
+    ((2, 64, 24), 8),     # S 4096 of mamba2-130m: 384 blocks of 8 heads
+    ((4, 2, 64), 4),      # zamba2 prefill of 65–128 tokens: 128 blocks
+    ((1, 1, 3), 1)])
+def test_heads_per_block_fills_the_card(shape, hg):
+    assert heads_per_block(*shape) == hg
 
 
 # ------------------------------------------------------------------ blocks
