@@ -274,8 +274,9 @@ class SpecDecodeEngine:
         (``node_valid``), so {γ, b} vary per round on one step. The draft
         proposes the grid (1 anchor decode + d_max − 1 depth windows), the
         target verifies it in one ancestor-masked pass, kernels B4a/B4b
-        give the verdict (their plain versions for CPU tensors), and the
-        winning path is relocated onto the linear slots of both caches.
+        give the verdict in one launch (their plain versions for CPU
+        tensors), and the winning path is relocated onto the linear slots
+        of both caches.
         Greedy only, attention families only."""
         if self.temperature > 0.0:
             raise NotImplementedError(
@@ -292,8 +293,10 @@ class SpecDecodeEngine:
         T = spec.n_entries
 
         def step(state: SpecDecodeState, active_gamma, branches, row_idx,
-                 out_buf, cursor, nacc_buf, nn_buf, max_new, done, eos_id
-                 ) -> SpecDecodeState:
+                 out_buf, cursor, nacc_buf, nn_buf, max_new, done, eos_id,
+                 *, counters) -> SpecDecodeState:
+            # counters: the caller's zeroed int32 (B,) workspace of the
+            # one-launch verdict (tree_verify_fused)
             tree_tokens, dcache = tree_propose(
                 self.draft, self.draft_params, state.draft_cache,
                 state.last_token, state.pos, spec)
@@ -304,7 +307,7 @@ class SpecDecodeEngine:
             node_valid = spec.node_valid(active_gamma, branches)
             n_acc, winner, bonus = tree_verify_fused(
                 tree_tokens, p_logits, spec.parent_entry, spec.tree_pos,
-                node_valid, spec.win_mask)
+                node_valid, spec.win_mask, spec.win_words, counters)
             res = TreeVerifyResult(
                 n_accepted=n_acc, next_token=bonus, winner=winner,
                 path=tree_path_from_winner(winner, spec.parent_entry,

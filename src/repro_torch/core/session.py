@@ -197,6 +197,7 @@ class DecodeSession:
         self._done = None
         self._nacc = None
         self._nn = None
+        self._tree_counters = None
 
         # engine-wide accounting / window-policy features (bounded lists)
         self.iterations = 0
@@ -282,6 +283,10 @@ class DecodeSession:
         self._row_tab = torch.arange(self.sync_every, dtype=torch.long,
                                      device=dev)
         self._eos = torch.full((), self.eos_id, **i32)
+        # the tree verdict's per-row counters (tree_verify_fused): zeroed
+        # once here, left at zero by every launch, owned by this session
+        self._tree_counters = (torch.zeros((B,), **i32)
+                               if self.max_branches else None)
 
     def _ensure_state(self) -> None:
         """Lazily build an all-free device state for per-slot admission."""
@@ -498,7 +503,9 @@ class DecodeSession:
         eng = self.engine
         tree = bool(self.max_branches)
         if tree:
-            step = eng._tree_step(self.gamma_max, self.max_branches)
+            step = functools.partial(
+                eng._tree_step(self.gamma_max, self.max_branches),
+                counters=self._tree_counters)
         else:
             step = functools.partial(eng._step_fn(self.gamma_max),
                                      generator=self._gen)

@@ -21,8 +21,9 @@ The grid family and its rules are the reference's:
   :func:`repro_torch.models.kvcache.tree_commit_cache` relocates the
   winning path onto the linear slots and scrubs the rest.
 
-The verdict runs through kernels B4a/B4b
-(:func:`repro_torch.kernels.verify.tree_verify_fused`);
+The verdict runs through kernels B4a/B4b in one launch
+(:func:`repro_torch.kernels.verify.tree_verify_fused`), which reads the
+ancestor bitmap packed into 32-bit words (:attr:`TreeSpec.win_words`);
 :func:`verify_tree_greedy` is their plain version in full (the tests use
 it). Nothing here reads a device value on the host.
 """
@@ -40,8 +41,10 @@ from ..kernels.verify.ref import accept_rule, tree_argmax_plain
 class TreeSpec:
     """Static (d_max, b_max) grid-family descriptor: the reference's numpy
     tables and their mirrors on ``device`` (int32 tables, bool masks).
-    The per-depth draft-window tables are built here too, so a round
-    allocates and copies nothing from the host."""
+    The per-depth draft-window tables and ``win_words``, the ancestor
+    bitmap packed for kernel B4b ((T, ⌈T/32⌉) int32: bit a % 32 of word
+    a // 32 of row e is ``mask_np[e, a]``), are built here too, so a round
+    allocates, packs and copies nothing from the host."""
 
     def __init__(self, d_max: int, b_max: int, device="cpu"):
         if d_max < 1 or b_max < 1:
@@ -70,13 +73,20 @@ class TreeSpec:
                     break
                 a = int(parent[a])
 
+        W = -(-T // 32)
+        packed = np.packbits(mask, axis=1, bitorder="little")
+        packed = np.pad(packed, ((0, 0), (0, 4 * W - packed.shape[1])))
+        words = packed.view("<i4").astype(np.int32)            # (T, W)
+
         self.depth_np, self.branch_np = depth, branch
         self.parent_np, self.tree_pos_np, self.mask_np = parent, tpos, mask
+        self.win_words_np = words
         dev = torch.device(device)
         as_dev = lambda a: torch.as_tensor(a, device=dev)
         self.parent_entry = as_dev(parent)
         self.tree_pos = as_dev(tpos)
         self.win_mask = as_dev(mask)
+        self.win_words = as_dev(words)
         self.depth = as_dev(depth)
         self.branch = as_dev(branch)
         self.slot_off = torch.arange(T, dtype=torch.int32, device=dev)

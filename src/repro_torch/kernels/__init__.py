@@ -5,7 +5,8 @@
 - decode_attn.paged — the same over a paged block pool (replaces
   ``repro/kernels/decode_attn/paged.py``),
 - verify.tree — greedy tree verify: the per-entry target argmax and the
-  longest-accepted-root-path rule (replace ``repro/kernels/verify/tree.py``),
+  longest-accepted-root-path rule, alone and in one launch (replace
+  ``repro/kernels/verify/tree.py``),
 - verify.verify — sampled verify: the gather/residual-mass pass and the
   inverse-CDF sample (replace ``repro/kernels/verify/verify.py``),
 - ssd — the Mamba2 SSD chunked scan (replaces
@@ -48,6 +49,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # show a path ran through the kernels (chip_smoke.py)
 LAUNCHES: dict[str, int] = {"decode_attn": 0, "paged_decode_attn": 0,
                             "tree_argmax": 0, "tree_accept": 0,
+                            "tree_verify": 0,
                             "gather_reduce": 0, "cdf_sample": 0,
                             "ssd_scan": 0}
 
@@ -162,9 +164,15 @@ _SIGNATURES = {
     "paged_decode_attn_launch": [_P] * 10 + [_I] * 13 + [_P],
     # logits, out, rows, V, stream
     "tree_argmax_launch": [_P] * 2 + [_I] * 2 + [_P],
-    # tok, tgt, parent, tpos, valid, mask, n_acc, winner, bonus, B, T,
+    # tok, tgt, parent, tpos, valid, words, n_acc, winner, bonus, B, T,
     # stream
     "tree_accept_launch": [_P] * 9 + [_I] * 2 + [_P],
+    # logits, tok, tgt, parent, tpos, valid, words, counters, n_acc,
+    # winner, bonus, B, T, V, stream
+    "tree_verify_launch": [_P] * 11 + [_I] * 3 + [_P],
+    # stream: an empty kernel, the launch floor short kernels are timed
+    # against
+    "empty_kernel_launch": [_P],
     # tokens, p, q, partial, p_at, q_at, mass, B, gamma, V, splits, dtype,
     # stream
     "gather_reduce_launch": [_P] * 7 + [_I] * 5 + [_P],

@@ -5,7 +5,8 @@
   mass), the O(BΓ) acceptance rule in torch on the device, then B3b
   (inverse-CDF sample);
 - :func:`tree_verify_fused` — greedy tree verify: B4a (per-entry target
-  argmax) then B4b (accept rule).
+  argmax) and B4b (accept rule) in one launch, a kernel wrapper of its own
+  (:mod:`.tree`) under the reference glue's name.
 
 The CUDA kernels take any V, so no vocab padding is needed."""
 
@@ -16,7 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .ref import VerifyOut
-from .tree import tree_accept, tree_argmax
+from .tree import tree_verify_fused  # noqa: F401  (the glue's name)
 from .verify import cdf_sample, gather_reduce
 
 # a residual mass at or below this is empty and the row samples p itself
@@ -91,15 +92,3 @@ def verify_window_fused(draft_tokens: torch.Tensor,   # (B, Γ) int32
     return VerifyOut(n_accepted=sel.n_acc, next_token=token,
                      accept_mask=sel.accept)
 
-
-def tree_verify_fused(tree_tokens: torch.Tensor,   # (B, T) int32
-                      p_logits: torch.Tensor,      # (B, T, V) float32
-                      parent_entry: torch.Tensor,  # (T,) int32
-                      tree_pos: torch.Tensor,      # (T,) int32
-                      node_valid: torch.Tensor,    # (T,) bool
-                      win_mask: torch.Tensor):     # (T, T) bool
-    """(n_accepted, winner, bonus), each (B,) int32 — the verdict of
-    :func:`repro_torch.core.tree.verify_tree_greedy`."""
-    tgt = tree_argmax(p_logits)
-    return tree_accept(tree_tokens, tgt, parent_entry, tree_pos, node_valid,
-                       win_mask)

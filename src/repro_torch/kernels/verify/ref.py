@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the verify kernels.
 
 - Tree verify: the per-entry target argmax (B4a, ``torch.argmax``: ties to
-  the lowest id) and the longest-accepted-root-path rule (B4b).
+  the lowest id) and the longest-accepted-root-path rule (B4b), also as
+  the packed-word arithmetic the kernel follows (:func:`accept_rule_words`
+  over :func:`pack_mask_words`).
 - Sampled verify: the oracle :func:`verify_reference` (the accept–resample
   rule with explicit uniforms) and the plain versions of the kernel pair,
   :func:`gather_reduce_plain` (B3a) and :func:`cdf_sample_plain` (B3b).
@@ -22,6 +24,17 @@ def tree_argmax_plain(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _match(tree_tokens, tgt, parent_entry, node_valid) -> torch.Tensor:
+    """(B, T) bool: the entry is valid and its token is the target's argmax
+    at its parent; the anchor always matches."""
+    B, T = tree_tokens.shape
+    parent_tgt = torch.gather(tgt, 1,
+                              parent_entry.long()[None, :].expand(B, T))
+    anchor = torch.arange(T, device=tree_tokens.device) == 0
+    return (node_valid[None, :] & (tree_tokens == parent_tgt)) \
+        | anchor[None, :]
+
+
 def accept_rule(tree_tokens: torch.Tensor,   # (B, T) int32
                 tgt: torch.Tensor,           # (B, T) int32 target argmax
                 parent_entry: torch.Tensor,  # (T,) int32
@@ -35,12 +48,9 @@ def accept_rule(tree_tokens: torch.Tensor,   # (B, T) int32
     every ancestor-or-self matches. The winner is the deepest accepted
     entry, ties to the lowest index (the best-ranked branch); the bonus is
     the target's argmax at the winner."""
-    B, T = tree_tokens.shape
+    T = tree_tokens.shape[1]
     entry = torch.arange(T, device=tree_tokens.device)
-    parent_tgt = torch.gather(tgt, 1,
-                              parent_entry.long()[None, :].expand(B, T))
-    match = (node_valid[None, :] & (tree_tokens == parent_tgt)) \
-        | (entry == 0)[None, :]
+    match = _match(tree_tokens, tgt, parent_entry, node_valid)
     accept = (match[:, None, :] | ~win_mask[None, :, :]).all(dim=-1)
     score = torch.where(accept, tree_pos.long()[None, :] * T + (T - entry),
                         torch.full_like(entry, -1)[None, :])
@@ -55,6 +65,52 @@ def tree_accept_plain(tree_tokens, tgt, parent_entry, tree_pos, node_valid,
     """The plain version of B4b: (n_acc, winner, bonus)."""
     return accept_rule(tree_tokens, tgt, parent_entry, tree_pos, node_valid,
                        win_mask)[1:]
+
+
+def _to_words(bits: torch.Tensor) -> torch.Tensor:
+    """(..., n) bool → (..., ⌈n/32⌉) int64 words in [0, 2³²): bit i % 32
+    of word i // 32 is bits[..., i]."""
+    n = bits.shape[-1]
+    W = -(-n // 32)
+    lanes = torch.arange(32, device=bits.device)
+    padded = torch.nn.functional.pad(bits.long(), (0, 32 * W - n))
+    return (padded.reshape(*bits.shape[:-1], W, 32) << lanes).sum(-1)
+
+
+def pack_mask_words(win_mask: torch.Tensor) -> torch.Tensor:
+    """(T, T) bool ancestor-or-self bitmap → (T, ⌈T/32⌉) int32, the layout
+    B4b reads: bit a % 32 of word a // 32 of row e is ``win_mask[e, a]``
+    (``TreeSpec.win_words`` builds the same with numpy)."""
+    words = _to_words(win_mask)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def accept_rule_words(tree_tokens: torch.Tensor,   # (B, T) int32
+                      tgt: torch.Tensor,           # (B, T) int32
+                      parent_entry: torch.Tensor,  # (T,) int32
+                      tree_pos: torch.Tensor,      # (T,) int32, >= 0
+                      node_valid: torch.Tensor,    # (T,) bool
+                      win_words: torch.Tensor):    # (T, ⌈T/32⌉) int32
+    """:func:`accept_rule` as kernel B4b computes it → (accept, n_acc,
+    winner, bonus): the match bits packed into 32-bit words as the warps'
+    ballots give them; entry e accepted when no word of its packed
+    ancestor row has a bit outside the match words; the best score
+    s = tpos·T + (T − e) over accepted entries, decoded as n_acc =
+    (s − 1) // T and winner = T − 1 − (s − 1) % T; bonus = tgt[winner]."""
+    T = tree_tokens.shape[1]
+    entry = torch.arange(T, device=tree_tokens.device)
+    match = _match(tree_tokens, tgt, parent_entry, node_valid)
+    match_words = _to_words(match)                              # (B, W)
+    rows = win_words.long() & 0xFFFFFFFF                        # (T, W)
+    viol = rows[None, :, :] & ~match_words[:, None, :]          # (B, T, W)
+    accept = (viol == 0).all(dim=-1)
+    score = torch.where(accept, tree_pos.long()[None, :] * T + (T - entry),
+                        torch.full_like(entry, -1)[None, :])
+    s = score.max(dim=-1).values - 1
+    winner = T - 1 - s % T
+    bonus = torch.gather(tgt, 1, winner[:, None])[:, 0]
+    return (accept, (s // T).to(torch.int32), winner.to(torch.int32),
+            bonus.to(torch.int32))
 
 
 # --------------------------------------------------------------------------

@@ -186,6 +186,29 @@ def test_awc_generate_matches_reference(pair, prompts):
     np.testing.assert_array_equal(tt, np.asarray(jt))
 
 
+def test_eos_generate_matches_reference(pair, prompts):
+    """``eos_id`` ≥ 0 through ``generate`` (linear dense, static γ 3): for
+    stop tokens taken from each greedy stream (row i's token at 4 + i),
+    tokens, accept counts, rounds and acceptance bit streams equal the
+    reference engine's, and rows stop before their budget."""
+    jeng, teng = pair["noised"]
+    p, lens = prompts
+    full, _ = teng.generate(p, MAX_NEW, StaticWindowPolicy(3),
+                            prompt_lens=lens, gamma_max=GMAX)
+    cut = 0
+    for eos in sorted({int(row[4 + i]) for i, row in enumerate(full)}):
+        jt, js = jeng.generate(p, MAX_NEW, JStatic(3), prompt_lens=lens,
+                               gamma_max=GMAX, eos_id=eos)
+        tt, ts = teng.generate(p, MAX_NEW, StaticWindowPolicy(3),
+                               prompt_lens=lens, gamma_max=GMAX, eos_id=eos)
+        np.testing.assert_array_equal(tt, np.asarray(jt))
+        assert (ts.accepted, ts.proposed, ts.iterations) == \
+            (js.accepted, js.proposed, js.iterations)
+        assert ts.acceptance_seqs == js.acceptance_seqs
+        cut += int((tt < 0).any(axis=1).sum())
+    assert cut >= 3
+
+
 def test_awc_decisions_match_reference():
     """Both AWC policies (default predictor + stabilizer) fed the same
     feature snapshots make the same decisions."""

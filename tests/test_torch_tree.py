@@ -5,12 +5,14 @@ numpy inputs and bridged weights (tiny float32 dense models: d_model 64,
 Discrete results are compared exactly: the grid tables, the tree verdict
 (n_accepted, winner, bonus, path, accept bitmap) against the reference's
 ``verify_tree_greedy`` and its Pallas ``tree_verify_fused`` in interpret
-mode, pos_map writes, proposed tree tokens, committed tokens, accept counts
-and acceptance bit streams, and AWC's joint {γ, b} decisions. K/V copies
-are compared to 1e-6 (they are copies; the bound only names the type), and
-attention outputs to atol/rtol 1e-5 (float32, sum order only). The CUDA
-kernels B4a/B4b and B1's masked path are held against these plain versions
-on the card by ``chip_smoke.py``."""
+mode, the packed-word rule kernel B4b follows (``accept_rule_words``, at
+T 2, 25, 33 and 65, so rows of several words count), pos_map writes,
+proposed tree tokens, committed tokens, accept counts and acceptance bit
+streams, and AWC's joint {γ, b} decisions. K/V copies are compared to 1e-6
+(they are copies; the bound only names the type), and attention outputs to
+atol/rtol 1e-5 (float32, sum order only). The CUDA kernels B4a/B4b (alone
+and in their one-launch ``tree_verify_fused``) and B1's masked path are held
+against these plain versions on the card by ``chip_smoke.py``."""
 
 import numpy as np
 import jax
@@ -37,7 +39,9 @@ from repro_torch.core.engine import SpecDecodeEngine
 from repro_torch.core.session import DecodeSession
 from repro_torch.core.window import (FeatureSnapshot, StaticWindowPolicy,
                                      make_window_policy)
-from repro_torch.kernels.verify import (tree_accept, tree_argmax,
+from repro_torch.kernels.verify import (MAX_ENTRIES, accept_rule,
+                                        accept_rule_words, pack_mask_words,
+                                        tree_accept, tree_argmax,
                                         tree_verify_fused)
 from repro_torch.models import kvcache as tkv
 from repro_torch.models.attention import attention_decode as t_attn
@@ -201,6 +205,108 @@ def test_verify_tree_greedy_matches_reference(V):
                 np.testing.assert_array_equal(a.numpy(), w.numpy())
             wins.update(spec.branch_np[got.winner.numpy()].tolist())
     assert wins - {0}, wins                 # later branches win too
+
+
+WORD_TREES = [(1, 1), (8, 3), (8, 4), (16, 4)]     # T 2, 25, 33, 65
+
+
+@pytest.mark.parametrize("d_max,b_max", WORD_TREES)
+def test_win_words_pack_the_mask(d_max, b_max):
+    """``TreeSpec.win_words`` is the ancestor bitmap packed little-endian
+    (bit a % 32 of word a // 32 of row e), on the host and the device, and
+    :func:`pack_mask_words` packs a (T, T) mask the same way."""
+    spec = ttree.TreeSpec(d_max, b_max)
+    T = spec.n_entries
+    W = -(-T // 32)
+    packed = np.packbits(spec.mask_np, axis=1, bitorder="little")
+    packed = np.pad(packed, ((0, 0), (0, 4 * W - packed.shape[1])))
+    want = np.ascontiguousarray(packed).view("<u4").astype(np.int64)
+    bits = np.zeros((T, W), np.int64)
+    for e, a in zip(*np.nonzero(spec.mask_np)):
+        bits[e, a // 32] |= 1 << (a % 32)
+    np.testing.assert_array_equal(want, bits)
+    for words in (spec.win_words_np, spec.win_words.numpy(),
+                  pack_mask_words(spec.win_mask).numpy()):
+        assert words.dtype == np.int32 and words.shape == (T, W)
+        np.testing.assert_array_equal(words.view(np.uint32), want)
+
+
+@pytest.mark.parametrize("d_max,b_max", WORD_TREES)
+def test_accept_rule_words_matches_reference(d_max, b_max):
+    """The packed-word rule equals ``accept_rule`` (accept bitmap too) and
+    the reference's Pallas ``tree_verify_fused`` in interpret mode over
+    every (γ, b); the port's glue given the packed words agrees."""
+    spec, ref = ttree.TreeSpec(d_max, b_max), jtree.TreeSpec(d_max, b_max)
+    T = spec.n_entries
+    toks, logits = _verdict_inputs(spec, 128, seed=T)
+    tgt_np = logits.argmax(-1)
+    # deep paths too: row r follows the target on branch b_max − 1 − r %
+    # b_max down to depth d_max − r, so the last entries (the last word's
+    # bits) are accepted and win
+    deep = toks.copy()
+    for r in range(deep.shape[0]):
+        k = b_max - 1 - r % b_max
+        for e in range(1, T):
+            if spec.branch_np[e] == k and spec.depth_np[e] < d_max - r:
+                deep[r, e] = tgt_np[r, spec.parent_np[e]]
+    tl = t(logits)
+    tgt = torch.argmax(tl, -1).to(torch.int32)
+    winners = set()
+    for toks_np in (toks, deep):
+        tt = t(toks_np)
+        for g in range(d_max + 1):
+            for b in range(1, b_max + 1):
+                nv = spec.node_valid(g, b)
+                got = accept_rule_words(tt, tgt, spec.parent_entry,
+                                        spec.tree_pos, nv, spec.win_words)
+                want = accept_rule(tt, tgt, spec.parent_entry,
+                                   spec.tree_pos, nv, spec.win_mask)
+                for a, w in zip(got, want):
+                    assert a.dtype == w.dtype
+                    np.testing.assert_array_equal(a.numpy(), w.numpy())
+                fused = j_tree_verify_fused(
+                    j(toks_np), j(logits), ref.parent_entry, ref.tree_pos,
+                    ref.node_valid(j(g), j(b)), ref.win_mask,
+                    interpret=True)
+                port = tree_verify_fused(tt, tl, spec.parent_entry,
+                                         spec.tree_pos, nv, spec.win_mask,
+                                         spec.win_words)
+                for a, f, p in zip(got[1:], fused, port):
+                    np.testing.assert_array_equal(a.numpy(), np.asarray(f))
+                    np.testing.assert_array_equal(a.numpy(), p.numpy())
+                winners.update(got[2].tolist())
+    assert T - 1 in winners                 # the last entry, last word
+
+
+def test_tree_verify_wrapper_checks():
+    """The one-launch wrapper: CPU tensors run B4a's and B4b's plain
+    versions (the card's packed words and counters are not read); meta
+    tensors and more than MAX_ENTRIES entries raise."""
+    spec = ttree.TreeSpec(8, 4)
+    toks, logits = _verdict_inputs(spec, 128, seed=5)
+    tt, tl = t(toks), t(logits)
+    nv = spec.node_valid(5, 3)
+    counters = torch.zeros(tt.shape[0], dtype=torch.int32)
+    want = accept_rule(tt, torch.argmax(tl, -1).to(torch.int32),
+                       spec.parent_entry, spec.tree_pos, nv, spec.win_mask)
+    for extra in ((), (spec.win_words, counters)):
+        got = tree_verify_fused(tt, tl, spec.parent_entry, spec.tree_pos,
+                                nv, spec.win_mask, *extra)
+        for a, w in zip(got, want[1:]):
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), w.numpy())
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tree_verify_fused(tt.to("meta"), tl.to("meta"), spec.parent_entry,
+                          spec.tree_pos, nv, spec.win_mask, spec.win_words,
+                          counters.to("meta"))
+    big = ttree.TreeSpec(MAX_ENTRIES // 4, 4)           # T = MAX_ENTRIES + 1
+    T = big.n_entries
+    assert T == MAX_ENTRIES + 1
+    with pytest.raises(ValueError, match=f"at most {MAX_ENTRIES}"):
+        tree_verify_fused(torch.zeros((1, T), dtype=torch.int32),
+                          torch.zeros((1, T, 4)), big.parent_entry,
+                          big.tree_pos, big.node_valid(1, 1), big.win_mask,
+                          big.win_words, torch.zeros(1, dtype=torch.int32))
 
 
 def test_tree_committed_matches_reference():
@@ -442,6 +548,35 @@ def test_tree_session_matches_reference(weights, port_engine, prompts,
     side_wins = sum(int(((branch[w.long()] > 0) & ~d).sum())
                     for w, d in winners)
     assert side_wins > 0
+
+
+def test_eos_tree_session_matches_reference(weights, port_engine, prompts):
+    """``eos_id`` ≥ 0 in a tree ``DecodeSession(max_branches=3)`` (static
+    γ 3 × b 3): the verdict's bonus goes through ``slot_stop_mask``; for
+    stop tokens taken from each greedy stream (row i's token at 4 + i),
+    tokens, accept counts, rounds and acceptance bit streams equal the
+    reference session's, and rows stop before their budget."""
+    d_np, t_np = weights
+    jcfg = JCfg(**CFG, **TARGET)
+    jeng = JEngine(jcfg, jcfg, draft_params=jax.tree.map(jnp.asarray, d_np),
+                   target_params=jax.tree.map(jnp.asarray, t_np),
+                   temperature=0.0, key=jax.random.PRNGKey(0))
+    kw = dict(capacity=3, max_new_cap=MAX_NEW, max_prompt_len=12,
+              gamma_max=GMAX, sync_every=4, max_branches=BMAX)
+    full, _ = _run(DecodeSession(port_engine, **kw), prompts,
+                   [StaticWindowPolicy(3, branches=3)])
+    cut = 0
+    for eos in sorted({int(row[4 + i]) for i, row in enumerate(full)}):
+        jt, js = _run(JSession(jeng, mode_policy="distributed", eos_id=eos,
+                               **kw), prompts, [JStatic(3, branches=3)])
+        tt, ts = _run(DecodeSession(port_engine, eos_id=eos, **kw), prompts,
+                      [StaticWindowPolicy(3, branches=3)])
+        np.testing.assert_array_equal(tt, jt)
+        assert (ts.accepted, ts.proposed, ts.iterations) == \
+            (js.accepted, js.proposed, js.iterations)
+        assert ts.acceptance_seqs == js.acceptance_seqs
+        cut += int((tt < 0).any(axis=1).sum())
+    assert cut >= 3
 
 
 def test_one_branch_tree_equals_linear(port_engine, prompts):
