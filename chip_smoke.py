@@ -45,7 +45,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               the linear one bit for bit (tokens and acceptance bits); at
               temperature 1.0, self-speculation accepts ≥ 0.99, the noised
               draft strictly between 0 and 1, and a seed fixes the tokens;
-5. serve    — the qwen3-14b target ← qwen2.5-3b draft pair in bf16
+5. capture  — float32, published widths at the exact phases' depths:
+              every session step captured once as a CUDA graph and
+              replayed, against the same runs eager (``capture=False``) on
+              one engine, seed and stream: qwen servers dense and paged
+              with γ changing every round, tree sessions (static γ 4 × b
+              3, AWC with max_branches=3, γ × b changing every round) on
+              a noised-draft pair, the zamba2 ← mamba2 split server —
+              captured tokens == eager == the target-only greedy decode;
+              at temperature 1.0 captured == eager on one seed (qwen and
+              zamba2 pairs); 2 graphs per server and 1 per wave session
+              whatever γ, b and 8 admissions into 4 slots did, replays =
+              rounds + admissions − warm-ups; then the bf16 qwen dense
+              static γ 4 serve at QWEN_CUT depth eager and captured back to
+              back (walls, TPOT, device busy share, equal launch counts);
+6. serve    — the qwen3-14b target ← qwen2.5-3b draft pair in bf16
               through ``repro_torch.launch.serve``: dense and paged static
               γ=4 at the published depth, dense AWC at QWEN_CUT depth
               (every width as published), each checked for complete
@@ -61,21 +75,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               paged (QWEN_CUT) static runs again at ``--temperature 1.0``
               with the same launch counts, their greedy twins' step keys
               and B3a = B3b = rounds (every greedy and tree run: B3 = 0);
-6. exact_ssm — float32, published widths: zamba2-1.2b (8 layers: one
+              every run replays its rounds and admissions from captured
+              graphs (2 per server, 1 per wave session: checked);
+7. exact_ssm — float32, published widths: zamba2-1.2b (8 layers: one
               shared-attention segment and a 2-layer tail) ← mamba2-130m
               (2 layers), vocab 32000, through the server: greedy tokens ==
               a target-only greedy decode; zamba2 and mamba2-130m
               self-speculation at acceptance 1.0 with their models' greedy
               tokens; at temperature 1.0 zamba2 self-speculation accepts
               ≥ 0.99 and a seed fixes the pair's tokens;
-7. serve_ssm — the full zamba2-1.2b ← mamba2-130m pair in bf16 through
+8. serve_ssm — the full zamba2-1.2b ← mamba2-130m pair in bf16 through
               ``repro_torch.launch.serve`` (static γ 4, greedy and
-              ``--temperature 1.0``): complete outputs, 2 step keys, B5 =
-              rounds·38 + admissions·(38 + 24), B1 = rounds·6·(γ_max + 2) +
-              admissions·6, B3 = rounds sampled and 0 greedy; the advance
-              loop's share of the decode wall and a profile.
+              ``--temperature 1.0``): complete outputs, 2 step keys and 2
+              captured graphs, B5 = rounds·38 + admissions·(38 + 24), B1 =
+              rounds·6·(γ_max + 2) + admissions·6, B3 = rounds sampled and
+              0 greedy; a profile.
 The decode rounds of every chunk run under
-``torch.cuda.set_sync_debug_mode("error")``.
+``torch.cuda.set_sync_debug_mode("error")`` (all but the one call per
+session that captures its round step: capture synchronizes the device).
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, the card's
 name and power limit, and the last line ``{"ok": true, "device": {...}}``.
@@ -95,8 +112,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "exact", "serve", "exact_ssm",
-          "serve_ssm")
+PHASES = ("device", "build", "kernels", "exact", "capture", "serve",
+          "exact_ssm", "serve_ssm")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
@@ -1470,10 +1487,34 @@ def _serve(engine, policy, reqs, **cfg_kw):
     return srv, res
 
 
+def graph_counts(eng) -> dict:
+    g = eng.graphs
+    return {"captured": g.captured, "replays": g.replays,
+            "warm_ups": g.warm_ups}
+
+
+def graphs_since(eng, before: dict) -> dict:
+    now = graph_counts(eng)
+    return {k: now[k] - before[k] for k in now}
+
+
+def want_graphs(steps: int, calls: int) -> dict:
+    """Graphs of ``steps`` captured steps called ``calls`` times in all:
+    each warms up once, captures once, and serves every later call by a
+    replay."""
+    return {"captured": steps, "replays": calls - steps, "warm_ups": steps}
+
+
+def summary_graphs(s: dict) -> dict:
+    return {"captured": s["captured_graphs"], "replays": s["graph_replays"],
+            "warm_ups": s["graph_warm_ups"]}
+
+
 class WinnerLog:
     """Records each tree round's winning entries (and which rows were
     already done) by wrapping the engine's verdict call; the wrapped call
-    is the real one, so launch counts are unchanged. Information only."""
+    is the real one, so launch counts are unchanged. It runs once per
+    round only in eager sessions (``capture=False``). Information only."""
 
     def __init__(self):
         import repro_torch.core.engine as engine_mod
@@ -1498,11 +1539,13 @@ class WinnerLog:
 
 
 def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
-                 log=None, seed: int = 0) -> dict:
+                 log=None, seed: int = 0, capture=None) -> dict:
     """Decode ``reqs`` wave by wave (``batch`` at a time) through
     ``DecodeSession`` as ``benchmarks/bench_tree.py`` run_cell drives it:
     ``admit_batch`` the wave, ``run_chunk`` until every row stops,
-    ``snapshot``. Returns per-request tokens and the summed statistics."""
+    ``snapshot``. ``capture`` goes to each session (None: rounds replayed
+    from the session's captured graph). Returns per-request tokens and the
+    summed statistics."""
     from repro_torch.core.session import DecodeSession
     out = {"tokens": {}, "bits": {}, "rounds": 0, "fused": 0, "waves": 0,
            "accepted": 0, "proposed": 0, "wall_s": 0.0,
@@ -1516,7 +1559,8 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
         max_new = wave[0].max_new_tokens
         sess = DecodeSession(eng, capacity=len(wave), max_new_cap=max_new,
                              gamma_max=GAMMA_MAX, sync_every=8,
-                             max_branches=max_branches, seed=seed + w0)
+                             max_branches=max_branches, seed=seed + w0,
+                             capture=capture)
         if log is not None:
             log.sess = sess
         t0 = time.perf_counter()
@@ -1542,16 +1586,20 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
 
 
 class RecordingPolicy:
-    """Forwards to a window policy and keeps the branch width each round
-    actually runs (the session clamps to b_max; a fused round runs b 1)."""
+    """Forwards to a window policy and keeps the γ and branch width each
+    round actually runs (the session clamps b to b_max; a fused round runs
+    γ 0, b 1)."""
 
     def __init__(self, inner, b_max: int):
-        self.inner, self.b_max, self.widths = inner, b_max, []
+        self.inner, self.b_max, self.widths, self.gammas = inner, b_max, [], []
 
     def decide(self, pair_key, feats):
         dec = self.inner.decide(pair_key, feats)
-        self.widths.append(1 if dec.mode == "fused"
+        fused = dec.mode == "fused"
+        self.widths.append(1 if fused
                            else min(self.b_max, max(1, int(dec.branches))))
+        self.gammas.append(0 if fused
+                           else min(GAMMA_MAX, max(1, int(dec.gamma))))
         return dec
 
     def gamma_bound(self):
@@ -1589,10 +1637,10 @@ def tree_exact(torch, np, t_cfg, target, target_params, dev) -> None:
                            gamma_max=GAMMA_MAX, device=dev)
     reqs = _workload(np, t_cfg.vocab)
     lin = run_sessions(np, eng, reqs, StaticWindowPolicy(4), 0)
-    with WinnerLog() as log:
+    with WinnerLog() as log:            # reads each round: eager rounds
         tree = run_sessions(np, eng, reqs,
                             StaticWindowPolicy(4, branches=B_MAX), B_MAX,
-                            log=log)
+                            log=log, capture=False)
     one = run_sessions(np, eng, reqs, StaticWindowPolicy(4), 1)
     side = log.side_wins(TreeSpec(GAMMA_MAX, B_MAX).branch_np)
     mismatches = []
@@ -1741,6 +1789,243 @@ def phase_exact(torch):
     torch.cuda.empty_cache()
 
 
+class CyclePolicy:
+    """γ 1..4 and b 1..b_max change every round and every fifth round is
+    fused (γ 0): what the captured steps must serve without a new graph."""
+
+    def __init__(self, b_max: int = 1):
+        self.i, self.b_max = 0, b_max
+
+    def decide(self, pair_key, feats):
+        from repro_torch.core.window import WindowDecision
+        self.i += 1
+        if self.i % 5 == 0:
+            return WindowDecision(1, "fused")
+        return WindowDecision(1 + self.i % 4, "distributed",
+                              branches=1 + self.i % self.b_max)
+
+    def gamma_bound(self):
+        return GAMMA_MAX
+
+
+def capture_pair(np, name, eng, drive, admissions, steps, ref=None) -> None:
+    """Drive one configuration captured and eager (``capture=False``) on the
+    same engine, seed and stream; fail unless the tokens are equal (and
+    equal ``ref``, the target-only greedy decode, where given), the
+    captured run's graphs are ``steps`` per session whatever γ, b and the
+    admissions did, every other round and admission was a replay, and the
+    eager run captured nothing. ``drive(capture)`` returns (tokens by
+    request, rounds, sessions, recording policy)."""
+    runs = {}
+    for mode, capture in (("captured", None), ("eager", False)):
+        g0 = graph_counts(eng)
+        t0 = time.perf_counter()
+        tokens, rounds, sessions, pol = drive(capture)
+        runs[mode] = {"tokens": tokens, "rounds": rounds,
+                      "sessions": sessions,
+                      "graphs": graphs_since(eng, g0),
+                      "distinct_gamma": len(set(pol.gammas)),
+                      "distinct_branches": len(set(pol.widths)),
+                      "seconds": time.perf_counter() - t0}
+    cap, eag = runs["captured"], runs["eager"]
+    want = want_graphs(steps * cap["sessions"], cap["rounds"] + admissions)
+    same = sorted(cap["tokens"]) == sorted(eag["tokens"]) and all(
+        np.array_equal(cap["tokens"][i], eag["tokens"][i])
+        for i in eag["tokens"])
+    greedy = None if ref is None else all(
+        np.array_equal(cap["tokens"][i], ref[i]) for i in ref)
+    info = {"phase": "capture", "run": name, "requests": len(cap["tokens"]),
+            "admissions": admissions, "rounds": cap["rounds"],
+            "eager_rounds": eag["rounds"],
+            "distinct_gamma": cap["distinct_gamma"],
+            "distinct_branches": cap["distinct_branches"],
+            "graphs": cap["graphs"], "expected_graphs": want,
+            "eager_graphs": eag["graphs"],
+            "captured_equals_eager": same,
+            "captured_equals_target_greedy": greedy,
+            "seconds": {m: r["seconds"] for m, r in runs.items()}}
+    emit(info)
+    if not same:
+        fail(f"capture {name}: captured tokens differ from eager")
+    if greedy is False:
+        fail(f"capture {name}: tokens differ from the target's greedy decode")
+    if cap["graphs"] != want or eag["graphs"] != want_graphs(0, 0):
+        fail(f"capture {name}: graphs {cap['graphs']} (eager "
+             f"{eag['graphs']}), expected {want}")
+
+
+def phase_capture(torch, kernels):
+    """Float32 at the published widths and the exact phases' depths: every
+    session step captured once and replayed against the same step run
+    eagerly (``capture=False``), on one engine, seed and stream (8 requests
+    × 32 tokens, batch 4: 8 admissions, twice the capacity). Servers on
+    the qwen pair, dense and paged, with γ changing every round (fused
+    rounds included): 2 graphs each (round step, insert). Tree sessions
+    on a noised-draft pair, static γ 4 × b 3, AWC with max_branches=3 and
+    γ × b changing every round: one graph per wave session. The split step
+    on zamba2 ← mamba2 (exact_ssm depths). Greedy tokens equal eager and
+    the target-only greedy decode; at temperature 1.0 captured equals
+    eager on one seed (qwen and zamba2 pairs). Then the qwen dense static
+    γ 4 bf16 serve at QWEN_CUT depth eager and captured back to back:
+    walls, TPOT and device busy share."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy, make_window_policy
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=2,
+                                dtype="float32")
+    d_cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2,
+                                dtype="float32")
+    reqs = _workload(np, t_cfg.vocab)
+    n = len(reqs)
+    # the servers' slot length (pad quantum 16), which the greedy
+    # reference decodes at, and dense parity of the paged pool
+    P = 16 * math.ceil(max(r.prompt.size for r in reqs) / 16)
+    slots = P + 32 + 2 * GAMMA_MAX + 18
+    parity = 4 * math.ceil(slots / 16)
+
+    def server(eng, policy, reqs, **kw):
+        def drive(capture):
+            pol = RecordingPolicy(policy(), 1)
+            srv, res = _serve(eng, pol, reqs, capture=capture, **kw)
+            return ({i: r.tokens for i, r in res.items()},
+                    srv._sessions[0].iterations, 1, pol)
+        return drive
+
+    def waves(eng, policy, b_max):
+        def drive(capture):
+            pol = RecordingPolicy(policy(), b_max)
+            res = run_sessions(np, eng, reqs, pol, b_max, capture=capture)
+            return res["tokens"], res["rounds"], res["waves"], pol
+        return drive
+
+    def greedy(eng, reqs, slots):
+        return {r.request_id: _greedy(
+            torch, eng.target, eng.target_params, r.prompt, r.max_new_tokens,
+            r.prompt.size + 64 if slots is None else slots, dev)[0]
+            for r in reqs}
+
+    t0 = time.perf_counter()
+    eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    ref = greedy(eng, reqs, slots)
+    emit({"phase": "capture", "setup_seconds": time.perf_counter() - t0})
+    capture_pair(np, "qwen linear dense", eng,
+                 server(eng, CyclePolicy, reqs), n, 2, ref)
+    capture_pair(np, "qwen linear paged", eng,
+                 server(eng, CyclePolicy, reqs, paged_kv=True,
+                        kv_pool_blocks=int(0.6 * parity)), n, 2, ref)
+    t1 = SpecDecodeEngine(d_cfg, t_cfg, draft_params=eng.draft_params,
+                          target_params=eng.target_params,
+                          temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                          device=dev)
+    capture_pair(np, "qwen linear dense T=1", t1,
+                 server(t1, lambda: StaticWindowPolicy(4), reqs), n, 2)
+    del t1
+    tree = SpecDecodeEngine(t_cfg, t_cfg, target_params=eng.target_params,
+                            draft_params=noised_copy(torch, eng.target_params,
+                                                     TREE_NOISE, 7),
+                            gamma_max=GAMMA_MAX, device=dev)
+    ref = greedy(eng, reqs, None)            # as tree_exact decodes it
+    for name, policy in (
+            ("static 4x3", lambda: StaticWindowPolicy(4, branches=B_MAX)),
+            ("awc", lambda: make_window_policy("awc", max_branches=B_MAX)),
+            ("cycle", lambda: CyclePolicy(B_MAX))):
+        capture_pair(np, f"qwen tree {name}", tree,
+                     waves(tree, policy, B_MAX), 0, 1, ref)
+    del tree, eng
+    torch.cuda.empty_cache()
+
+    st_cfg, sd_cfg = ssm_pair_cfgs(full=False)
+    sreqs = _workload(np, st_cfg.vocab)
+    ssm = SpecDecodeEngine(sd_cfg, st_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    P = 16 * math.ceil(max(r.prompt.size for r in sreqs) / 16)
+    ref = greedy(ssm, sreqs, P + 32 + 2 * GAMMA_MAX + 18)
+    capture_pair(np, "zamba2 <- mamba2 split", ssm,
+                 server(ssm, CyclePolicy, sreqs), n, 2, ref)
+    t1 = SpecDecodeEngine(sd_cfg, st_cfg, draft_params=ssm.draft_params,
+                          target_params=ssm.target_params,
+                          temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                          device=dev)
+    capture_pair(np, "zamba2 <- mamba2 split T=1", t1,
+                 server(t1, lambda: StaticWindowPolicy(4), sreqs), n, 2)
+    del ssm, t1
+    torch.cuda.empty_cache()
+    eager_against_captured(torch, kernels)
+
+
+def eager_against_captured(torch, kernels) -> None:
+    """The qwen3-14b ← qwen2.5-3b dense static γ 4 serve (bf16, QWEN_CUT
+    depth, the smoke's stream) through the launcher, eager
+    (``--no-capture``) then captured, back to back; then each again under
+    torch.profiler for its device time. Busy share = profiled device ms ÷
+    the unprofiled wall (same rounds, same kernels). Launch counts must
+    agree between the two."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    argv = ["--target", "qwen3-14b", "--draft", "qwen2.5-3b", "--full-size",
+            "--max-batch", "4", "--requests", "8", "--max-new", "32",
+            "--gamma-max", str(GAMMA_MAX), "--seed", "0", "--json",
+            "--policy", "static", "--gamma", "4"]
+    modes = (("eager", ["--no-capture"]), ("captured", []))
+    res = {}
+    for mode, extra in modes:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with depth_cut(serve, QWEN_CUT):
+            out = serve.run(argv + extra)
+        s = out.summary
+        res[mode] = {k: s[k] for k in (
+            "wall_s", "tokens_per_s", "mean_ttft_ms", "mean_tpot_ms",
+            "iterations", "requests")}
+        res[mode].update(graphs=summary_graphs(s),
+                         seconds=time.perf_counter() - t0,
+                         launches=dict(kernels.LAUNCHES),
+                         tokens={r.request_id: r.tokens for r in out.results})
+        del out
+        torch.cuda.empty_cache()
+    for mode, extra in modes:
+        t0 = time.perf_counter()
+        with depth_cut(serve, QWEN_CUT), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            out = serve.run(argv + extra)
+            torch.cuda.synchronize()
+        line = profile_summary(prof, f"dense_static {mode}",
+                               out.summary["iterations"],
+                               out.summary["requests"],
+                               out.summary["wall_s"])
+        r = res[mode]
+        r["profiled_seconds"] = time.perf_counter() - t0
+        r["device_ms_profiled"] = line["device_ms"]
+        r["device_busy_share"] = line["device_ms"] / 1e3 / r["wall_s"]
+        r["device_busy_share_profiled"] = line["device_busy_share_profiled"]
+        r["top_kernels"] = line["top_kernels"][:5]
+        del out, prof
+        torch.cuda.empty_cache()
+    eag, cap = res["eager"], res["captured"]
+    same = all(np.array_equal(eag["tokens"][i], cap["tokens"][i])
+               for i in eag["tokens"])
+    launches_equal = eag["launches"] == cap["launches"]
+    for r in res.values():
+        del r["tokens"]
+    emit({"phase": "capture", "check": "eager vs captured",
+          "run": "qwen dense static gamma 4, bf16, QWEN_CUT",
+          "layers": [QWEN_CUT["qwen2.5-3b"], QWEN_CUT["qwen3-14b"]],
+          "card": smi_line(), "eager": eag, "captured": cap,
+          "wall_speedup": eag["wall_s"] / cap["wall_s"],
+          "tpot_speedup": eag["mean_tpot_ms"] / cap["mean_tpot_ms"],
+          "tokens_equal": same, "launches_equal": launches_equal})
+    if not launches_equal or eag["iterations"] != cap["iterations"]:
+        fail("eager vs captured: launches or rounds differ "
+             f"({eag['launches']} vs {cap['launches']})")
+    if cap["graphs"] != want_graphs(2, cap["iterations"] + cap["requests"]):
+        fail(f"eager vs captured: graphs {cap['graphs']}")
+
+
 def _agreement(torch, out, dev) -> dict:
     """Share of served tokens equal to a target-only greedy decode, and for
     each request that diverges, where and by what top-2 logit gap of the
@@ -1828,6 +2113,10 @@ def phase_serve(torch, kernels):
                    and (r.tokens < V).all() for r in out.results)
         keys = eng.step_programs()
         want_keys = 3 if "--paged-kv" in extra else 2
+        # one round step and one insert, captured once each: every other
+        # round and admission is a replay
+        graphs = summary_graphs(s)
+        graphs_want = want_graphs(2, s["iterations"] + s["requests"])
         # information only: bf16 agreement with a target-only greedy decode;
         # a sampled run's share of tokens equal to its greedy twin's
         agree = _agreement(torch, out, dev) if name == "dense_static" \
@@ -1850,6 +2139,7 @@ def phase_serve(torch, kernels):
                 "temperature": s["temperature"],
                 "fused_fraction": s["pairs"]["pair0"]["fused_fraction"],
                 "rounds": s["iterations"], "step_keys": keys,
+                "graphs": graphs, "expected_graphs": graphs_want,
                 "launches": launches, "expected_launches": want,
                 "max_memory_allocated_gb":
                     torch.cuda.max_memory_allocated() / 2**30,
@@ -1863,6 +2153,8 @@ def phase_serve(torch, kernels):
             fail(f"{name}: kernel launches {launches}, expected {want}")
         if keys != want_keys:
             fail(f"{name}: {keys} step keys, expected {want_keys}")
+        if graphs != graphs_want:
+            fail(f"{name}: graphs {graphs}, expected {graphs_want}")
         for k in totals:
             totals[k] += launches[k]
         del out, eng
@@ -1920,9 +2212,14 @@ def serve_tree(torch, np, kernels, dev) -> dict:
         policy = RecordingPolicy(inner, max(1, b_max))
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
+        g0 = graph_counts(eng)
         res = run_sessions(np, eng, reqs, policy, b_max)
         launches = dict(kernels.LAUNCHES)
         rounds, waves = res["rounds"], res["waves"]
+        # each wave's session captures its round step (the wave prefill
+        # stays eager)
+        graphs, graphs_want = graphs_since(eng, g0), want_graphs(waves,
+                                                                 rounds)
         tree_n = rounds if b_max else 0
         want = {"decode_attn": rounds * (GAMMA_MAX * L_d + L_t)
                 + waves * (L_d + L_t), "paged_decode_attn": 0,
@@ -1941,6 +2238,7 @@ def serve_tree(torch, np, kernels, dev) -> dict:
                 "fused_fraction": res["fused"] / max(1, rounds),
                 "mean_branch_width": float(np.mean(policy.widths)),
                 "acceptance": res["acceptance"], "step_keys": keys,
+                "graphs": graphs, "expected_graphs": graphs_want,
                 "launches": launches, "expected_launches": want,
                 "max_memory_allocated_gb":
                     torch.cuda.max_memory_allocated() / 2**30,
@@ -1954,6 +2252,8 @@ def serve_tree(torch, np, kernels, dev) -> dict:
         if keys != want_keys:
             fail(f"{name}: {keys} step keys, expected {want_keys} (the "
                  "linear step, then the tree step)")
+        if graphs != graphs_want:
+            fail(f"{name}: graphs {graphs}, expected {graphs_want}")
         if b_max:
             for k in totals:
                 totals[k] += launches[k]
@@ -2135,31 +2435,6 @@ def phase_exact_ssm(torch):
     torch.cuda.empty_cache()
 
 
-class AdvanceTimer:
-    """Host seconds spent inside the split step's advance loop
-    (``_scan_cache_advance``, target and draft), by wrapping it; the
-    wrapped call is the real one, so launch counts are unchanged. With the
-    device mostly idle the host's enqueue time is the round's wall.
-    Information only."""
-
-    def __init__(self):
-        import repro_torch.core.engine as engine_mod
-        self.mod, self.real, self.seconds = (
-            engine_mod, engine_mod._scan_cache_advance, 0.0)
-
-    def __enter__(self):
-        def timed(*args):
-            t = time.perf_counter()
-            out = self.real(*args)
-            self.seconds += time.perf_counter() - t
-            return out
-        self.mod._scan_cache_advance = timed
-        return self
-
-    def __exit__(self, *exc):
-        self.mod._scan_cache_advance = self.real
-
-
 def phase_serve_ssm(torch, kernels) -> dict:
     """The full zamba2-1.2b ← mamba2-130m pair in bf16 through
     ``repro_torch.launch.serve`` (the smoke's stream: 8 requests × 32
@@ -2170,7 +2445,8 @@ def phase_serve_ssm(torch, kernels) -> dict:
     the recurrence), B1 = rounds·n_seg·(γ_max + 2) + admissions·n_seg (the
     shared block in the verify and in each of the γ_max + 1 advance steps,
     and in the prefill), B3a = B3b = rounds sampled and 0 greedy, the rest
-    0. Then one profile of a short greedy serve."""
+    0; one round step and one insert captured, every other round and
+    admission replayed. Then one profile of a short greedy serve."""
     import numpy as np
     from repro_torch.launch import serve
     dev = torch.device("cuda", 0)
@@ -2187,8 +2463,7 @@ def phase_serve_ssm(torch, kernels) -> dict:
                          ["--temperature", str(SAMPLED_T)])):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        with AdvanceTimer() as adv:
-            out = serve.run(base + extra)
+        out = serve.run(base + extra)
         launches = dict(kernels.LAUNCHES)
         s = out.summary
         rounds, adm = s["iterations"], s["requests"]
@@ -2203,6 +2478,7 @@ def phase_serve_ssm(torch, kernels) -> dict:
                    and (r.tokens < V).all() for r in out.results)
         keys = eng.step_programs()
         decode_s = sum(sess.decode_wall_s for sess in out.server._sessions)
+        graphs, graphs_want = summary_graphs(s), want_graphs(2, rounds + adm)
         info = {"phase": "serve_ssm", "run": name,
                 "target": eng.target_cfg.name, "draft": eng.draft_cfg.name,
                 "requests": adm, "tokens": s["tokens"], "wall_s": s["wall_s"],
@@ -2212,10 +2488,8 @@ def phase_serve_ssm(torch, kernels) -> dict:
                 "mean_acceptance": s["mean_acceptance"],
                 "temperature": s["temperature"], "rounds": rounds,
                 "decode_wall_s": decode_s,
-                "advance_host_s": adv.seconds,
-                "advance_share_of_decode_wall": adv.seconds
-                / max(decode_s, 1e-9),
-                "step_keys": keys, "launches": launches,
+                "step_keys": keys, "graphs": graphs,
+                "expected_graphs": graphs_want, "launches": launches,
                 "expected_launches": want,
                 "max_memory_allocated_gb":
                     torch.cuda.max_memory_allocated() / 2**30,
@@ -2228,6 +2502,8 @@ def phase_serve_ssm(torch, kernels) -> dict:
             fail(f"{name}: kernel launches {launches}, expected {want}")
         if keys != 2:
             fail(f"{name}: {keys} step keys, expected 2 (split, insert)")
+        if graphs != graphs_want:
+            fail(f"{name}: graphs {graphs}, expected {graphs_want}")
         for k in totals:
             totals[k] += launches[k]
         del out, eng
@@ -2236,15 +2512,12 @@ def phase_serve_ssm(torch, kernels) -> dict:
     argv = list(base)
     argv[argv.index("--requests") + 1] = "4"
     argv[argv.index("--max-new") + 1] = "8"
-    with AdvanceTimer() as adv, profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = serve.run(argv)
         torch.cuda.synchronize()
     s = out.summary
-    line = profile_summary(prof, "hybrid_static 4x8", s["iterations"],
-                           s["requests"], s["wall_s"])
-    line["advance_host_s_profiled"] = adv.seconds
-    emit(line)
+    emit(profile_summary(prof, "hybrid_static 4x8", s["iterations"],
+                         s["requests"], s["wall_s"]))
     del out
     torch.cuda.empty_cache()
     return totals
@@ -2275,6 +2548,10 @@ def main(argv=None) -> int:
     if "exact" in phases:
         phase_exact(torch)
         seconds["exact"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if "capture" in phases:
+        phase_capture(torch, kernels)
+        seconds["capture"] = time.perf_counter() - t0
     totals, idle = {}, []
     t0 = time.perf_counter()
     if "serve" in phases:

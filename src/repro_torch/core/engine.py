@@ -28,15 +28,29 @@ The decode hot loop mirrors the reference ``repro/core/engine.py``:
   target verifies FROM the window-start state, which the port's recurrent
   steps return anew and never write (``models/ssm.py``), then
   :func:`_scan_cache_advance` re-advances that state over the committed
-  tokens, one masked single-token step per window position. No checkpoint
-  copy is taken: the window-start state is the one the round began with.
+  tokens, one masked single-token step per window position, and copies the
+  result into it. No checkpoint copy is taken: the window-start state is
+  read, never written, until that final copy.
 
-The reference counts compiled XLA programs; the port counts the distinct
-step keys it has built (``("fused", γ_max)``, ``("split", γ_max)``,
-``("tree", d_max, b_max)``,
-``("insert", …)``, ``("insert-paged", …)``, ``("release",)``) — the
-quantity that must not grow with γ/b changes or admission churn. Capturing
-the step in a CUDA graph is a later item of the ROADMAP.
+The reference jits each step once per shape key with donated buffers and
+counts its programs (``compiled_programs()``). The port's steps are the
+torch form of that contract: strictly IN PLACE over buffers the session
+owns — the caches (the split step copies its re-advanced recurrent state
+into the session's conv/state tensors at the end of the round), ``pos``
+and ``last_token`` (written with ``copy_``), the output buffer, cursors,
+budgets, done flags and stats rows — and every per-round or per-admission
+value (γ, b, the stats row, slot, prompt, prompt length, budget, the paged
+block rows) arrives in a device tensor of fixed address. So one step
+serves every round: on the card the session captures it once as a CUDA
+graph and replays it (:mod:`.capture`), on the CPU it runs eagerly.
+:meth:`SpecDecodeEngine.step_programs` counts the distinct step keys built
+(``("fused", γ_max)``, ``("split", γ_max)``, ``("tree", d_max, b_max)``,
+``("insert", …)``, ``("insert-paged", …)``, ``("release",)``), the
+quantity that must not grow with γ/b changes or admission churn;
+``graphs`` counts the graphs the engine's sessions captured and replayed.
+Graphs belong to the session whose buffers they were captured on: a
+second session captures its own. The wave prefill (``admit_batch``) and
+the paged release stay eager.
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ from ..models.kvcache import (HybridCacheT, PagedAttnCache, SSMCache,
                               insert_slot, paged_insert_row,
                               paged_release_slot, tree_commit_cache)
 from ..models.model import build_model
+from .capture import GraphCounts
 from .specdec import (SpecDecodeState, _temperature_probs, sample_from_probs,
                       slot_stop_mask, spec_decode_step)
 from .tree import (TreeSpec, TreeVerifyResult, tree_committed,
@@ -80,16 +95,29 @@ def _tree_where(active: torch.Tensor, new, old):
     return new
 
 
+def _copy_recurrent_(dst, src) -> None:
+    """Write ``src``'s recurrent leaves into ``dst``'s tensors (attention
+    caches are shared by the two and written in place already)."""
+    if isinstance(dst, HybridCacheT):
+        _copy_recurrent_(dst.ssm, src.ssm)
+    elif isinstance(dst, SSMCache):
+        dst.conv.copy_(src.conv)
+        dst.state.copy_(src.state)
+
+
 def _scan_cache_advance(decode_fn, params, cache, adv_tokens: torch.Tensor,
                         pos: torch.Tensor, num_new: torch.Tensor):
-    """Advance a recurrent cache over the committed window: step t feeds
-    ``adv_tokens[:, t]`` at position ``pos + t`` and keeps the new state
-    only for rows with t < ``num_new`` (a device mask: no host sync). A
-    Python loop over the T = γ_max + 1 positions (the reference's
-    ``lax.scan``)."""
+    """Advance a recurrent cache over the committed window, in place: step
+    t feeds ``adv_tokens[:, t]`` at position ``pos + t`` and keeps the new
+    state only for rows with t < ``num_new`` (a device mask: no host sync).
+    A Python loop over the T = γ_max + 1 positions (the reference's
+    ``lax.scan``); the loop reads ``cache`` as the window-start state and
+    the result is copied into its tensors at the end. Returns ``cache``."""
+    cur = cache
     for t in range(adv_tokens.shape[1]):
-        _, new = decode_fn(params, adv_tokens[:, t], cache, pos + t)
-        cache = _tree_where(t < num_new, new, cache)
+        _, new = decode_fn(params, adv_tokens[:, t], cur, pos + t)
+        cur = _tree_where(t < num_new, new, cur)
+    _copy_recurrent_(cache, cur)
     return cache
 
 
@@ -114,6 +142,20 @@ def _accumulate(new_tokens: torch.Tensor, num_new: torch.Tensor,
     cursor.add_(num_new)
     nacc_buf.index_copy_(0, row_idx.reshape(1), n_accepted[None, :])
     nn_buf.index_copy_(0, row_idx.reshape(1), num_new[None, :])
+
+
+def _commit(state: SpecDecodeState, next_token: torch.Tensor, stop,
+            new_tokens: torch.Tensor, out_buf, cursor, nacc_buf, nn_buf,
+            row_idx, done) -> None:
+    """The end of every round, in place: rows still live take the round's
+    next token and advance ``pos`` by their lifecycle-clamped count; the
+    committed tokens and stats go to the output and stats buffers; the done
+    flags update last (the token select reads the old ones)."""
+    state.last_token.copy_(torch.where(done, state.last_token, next_token))
+    state.pos.add_(stop.num_new)
+    _accumulate(new_tokens, stop.num_new, stop.n_accepted, out_buf, cursor,
+                nacc_buf, nn_buf, row_idx)
+    done.copy_(stop.done)
 
 
 @dataclass
@@ -183,6 +225,9 @@ class SpecDecodeEngine:
         self._draft_attention = draft_cfg.has_attention_cache
         self.step_keys: set = set()
         self._tree_specs: dict = {}      # (d_max, b_max) → device tables
+        # graphs captured / replays / warm-ups of this engine's sessions:
+        # a continuous server on the card captures 2 (round step, insert)
+        self.graphs = GraphCounts()
 
     def step_programs(self) -> int:
         """Distinct step keys built so far (the reference's compiled-program
@@ -231,7 +276,7 @@ class SpecDecodeEngine:
 
         def step(state: SpecDecodeState, active_gamma, row_idx, out_buf,
                  cursor, nacc_buf, nn_buf, max_new, done, eos_id,
-                 generator=None) -> SpecDecodeState:
+                 generator=None) -> None:
             res = spec_decode_step(draft_decode, target_verify,
                                    self.draft_params, self.target_params,
                                    state, gamma_max, active_gamma,
@@ -239,7 +284,6 @@ class SpecDecodeEngine:
             stop = slot_stop_mask(res.num_new, res.n_accepted,
                                   res.new_tokens, cursor, max_new, done,
                                   eos_id)
-            dcache, tcache = res.state.draft_cache, res.state.target_cache
             if split:
                 # committed[t] enters the state when the next window runs
                 # it, so the advance feeds last_token then the first
@@ -248,22 +292,15 @@ class SpecDecodeEngine:
                 adv = torch.cat([state.last_token[:, None],
                                  res.new_tokens[:, :gamma_max].clamp_min(0)],
                                 dim=1)
-                tcache = _scan_cache_advance(
-                    self.target.decode_step, self.target_params,
-                    state.target_cache, adv, state.pos, stop.num_new)
+                _scan_cache_advance(self.target.decode_step,
+                                    self.target_params, state.target_cache,
+                                    adv, state.pos, stop.num_new)
                 if not self._draft_attention:
-                    dcache = _scan_cache_advance(
-                        draft_decode, self.draft_params, state.draft_cache,
-                        adv, state.pos, stop.num_new)
-            new_state = SpecDecodeState(
-                draft_cache=dcache, target_cache=tcache,
-                last_token=torch.where(done, state.last_token,
-                                       res.state.last_token),
-                pos=state.pos + stop.num_new)
-            _accumulate(res.new_tokens, stop.num_new, stop.n_accepted,
-                        out_buf, cursor, nacc_buf, nn_buf, row_idx)
-            done.copy_(stop.done)
-            return new_state
+                    _scan_cache_advance(draft_decode, self.draft_params,
+                                        state.draft_cache, adv, state.pos,
+                                        stop.num_new)
+            _commit(state, res.state.last_token, stop, res.new_tokens, out_buf,
+                    cursor, nacc_buf, nn_buf, row_idx, done)
 
         return step
 
@@ -294,7 +331,7 @@ class SpecDecodeEngine:
 
         def step(state: SpecDecodeState, active_gamma, branches, row_idx,
                  out_buf, cursor, nacc_buf, nn_buf, max_new, done, eos_id,
-                 *, counters) -> SpecDecodeState:
+                 *, counters) -> None:
             # counters: the caller's zeroed int32 (B,) workspace of the
             # one-launch verdict (tree_verify_fused)
             tree_tokens, dcache = tree_propose(
@@ -322,39 +359,42 @@ class SpecDecodeEngine:
             for cache in (tcache, dcache):
                 tree_commit_cache(cache, state.pos, res.path,
                                   stop.n_accepted, T)
-            new_state = SpecDecodeState(
-                draft_cache=dcache, target_cache=tcache,
-                last_token=torch.where(done, state.last_token, bonus),
-                pos=state.pos + stop.num_new)
-            _accumulate(new_tokens, stop.num_new, stop.n_accepted, out_buf,
-                        cursor, nacc_buf, nn_buf, row_idx)
-            done.copy_(stop.done)
-            return new_state
+            _commit(state, bonus, stop, new_tokens, out_buf, cursor,
+                    nacc_buf, nn_buf, row_idx, done)
 
         return step
 
     def _insert_rows(self, state: SpecDecodeState, one: SpecDecodeState,
-                     out_buf, cursor, max_new_buf, done, slot: int,
-                     req_max_new: int) -> None:
-        state.last_token[slot] = one.last_token[0]
-        state.pos[slot] = one.pos[0]
-        out_buf[slot] = -1
-        out_buf[slot, 0] = one.last_token[0]
-        cursor[slot] = 1
-        max_new_buf[slot] = req_max_new
-        done[slot] = False
+                     out_buf, cursor, max_new_buf, done, slot: torch.Tensor,
+                     req_max_new: torch.Tensor) -> None:
+        """Batch row ``slot`` ((1,) int64 device index) of the state and the
+        lifecycle buffers takes the admitted request: anchor token, position,
+        an output row holding only the anchor, cursor 1, the budget
+        ``req_max_new`` ((1,) int32), not done."""
+        state.last_token.index_copy_(0, slot, one.last_token[:1])
+        state.pos.index_copy_(0, slot, one.pos[:1])
+        row = torch.cat([one.last_token[:1, None].to(out_buf.dtype),
+                         out_buf.new_full((1, out_buf.shape[1] - 1), -1)],
+                        dim=1)
+        out_buf.index_copy_(0, slot, row)
+        cursor.index_fill_(0, slot, 1)
+        max_new_buf.index_copy_(0, slot, req_max_new.to(max_new_buf.dtype))
+        done.index_fill_(0, slot, False)
 
     def _insert_step(self, capacity: int, slots: int, pad_len: int):
         """Prefill-insert for a live session: prefill one ``pad_len``-padded
-        prompt (true length ``plen``) and write its cache row, anchor token,
-        position and lifecycle entries into batch row ``slot``, in place.
-        One step key per session geometry, any slot / prompt length."""
+        prompt (true length ``plen``, (1,) int32) and write its cache row,
+        anchor token, position and lifecycle entries into batch row
+        ``slot`` ((1,) device index), in place. One step key per session
+        geometry, any slot / prompt length / budget: all three are device
+        values."""
         self.step_keys.add(("insert", capacity, slots, pad_len))
 
         def insert(state, out_buf, cursor, max_new_buf, done, prompt, plen,
-                   slot: int, req_max_new: int, generator=None) -> None:
+                   slot, req_max_new, generator=None) -> None:
             one = self._prefill(prompt, slots, prompt_lens=plen,
                                 generator=generator)
+            slot = slot.long()
             insert_slot(state.draft_cache, one.draft_cache, slot)
             insert_slot(state.target_cache, one.target_cache, slot)
             self._insert_rows(state, one, out_buf, cursor, max_new_buf,
@@ -366,15 +406,17 @@ class SpecDecodeEngine:
                            d_nlog: int, t_nlog: int):
         """Paged admission: prefill one prompt into a DENSE batch-1 row
         (``slots`` = the pool's logical length), scatter it into the
-        reserved pool blocks and point the slot's block table at them."""
+        reserved pool blocks (``draft_blocks``/``target_blocks``, device
+        rows padded with −1) and point the slot's block table at them."""
         self.step_keys.add(("insert-paged", capacity, slots, pad_len,
                             d_nlog, t_nlog))
 
         def insert(state, out_buf, cursor, max_new_buf, done, prompt, plen,
-                   slot: int, req_max_new: int, draft_blocks,
-                   target_blocks, generator=None) -> None:
+                   slot, req_max_new, draft_blocks, target_blocks,
+                   generator=None) -> None:
             one = self._prefill(prompt, slots, prompt_lens=plen,
                                 generator=generator)
+            slot = slot.long()
             for cache, row, blocks in (
                     (state.draft_cache, one.draft_cache, draft_blocks),
                     (state.target_cache, one.target_cache, target_blocks)):
@@ -424,7 +466,8 @@ class SpecDecodeEngine:
         else:
             rows = torch.arange(B, device=self.device)
             anchor = tlg[rows, (prompt_lens - 1).long()]
-            pos = prompt_lens.to(torch.int32)
+            # a copy: the state's pos is written in place by every round
+            pos = prompt_lens.to(torch.int32, copy=True)
         if self.temperature <= 0.0:
             first = torch.argmax(anchor, dim=-1).to(torch.int32)
         else:

@@ -20,6 +20,19 @@ device they run under ``torch.cuda.set_sync_debug_mode("error")``, so a
 host sync slipped into the step raises instead of silently serializing the
 loop. The host syncs once per chunk (:meth:`_sync_and_attribute`).
 
+On the card the session captures each of its steps once as a CUDA graph
+(:mod:`.capture`): the round step at its first ``run_chunk`` and the insert
+at its first ``admit`` run eagerly as the warm-up, their second call
+captures and replays, every later round or admission only fills the step's
+static inputs (γ, b and the stats row by a device-to-device copy; the
+padded prompt, length, slot, budget and paged block rows by one host copy)
+and replays. The capture call synchronizes the device, so it alone runs
+outside the no-sync guard. ``capture=False`` keeps every step eager on the
+card (the comparison); a CPU session runs them eagerly by the device rule
+and refuses ``capture=True``. The wave prefill (``admit_batch``) and the
+paged release stay eager: the first runs once per session, the second is
+one block-table row fill.
+
 The session owns one ``torch.Generator`` on its device, seeded from
 ``seed`` (the reference session's PRNG key). At temperature > 0 every
 round and every admission draws from it on the device — the draft's
@@ -37,7 +50,6 @@ A9.
 from __future__ import annotations
 
 import contextlib
-import functools
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -49,6 +61,7 @@ from ..models.kvcache import BlockAllocator, logical_blocks, reset_slot
 # fused-mode tokens stream edge-ward one control round trip per this many
 # committed tokens (the reference's sim/network.DEFAULT_FUSED_CHUNK)
 from .awc.model import DEFAULT_FUSED_CHUNK as FUSED_FLUSH_TOKENS
+from .capture import CapturedStep
 from .engine import DEFAULT_GAMMA_MAX, GenerationStats
 from .specdec import SpecDecodeState
 from .window import FeatureSnapshot
@@ -113,7 +126,11 @@ class DecodeSession:
                        width b ≤ the bound (``WindowDecision.branches``); 0
                        keeps the linear chain. ``max_branches=1`` is the
                        degenerate tree: the linear path's tokens. Greedy,
-                       attention families, dense KV.
+                       attention families, dense KV,
+    ``capture``        replay each step from a CUDA graph captured once
+                       (None: on the card, not on the CPU); ``False`` on
+                       the card runs every step eagerly; ``True`` on the
+                       CPU raises.
     """
 
     def __init__(self, engine, capacity: int, max_new_cap: int,
@@ -124,7 +141,8 @@ class DecodeSession:
                  mode_policy: str = "auto", pair_key: str = "engine",
                  paged: bool = False, kv_block_size: int = 16,
                  kv_pool_blocks=None, kv_quantize: bool = False,
-                 transport=None, max_branches: int = 0, seed: int = 0):
+                 transport=None, max_branches: int = 0, seed: int = 0,
+                 capture: Optional[bool] = None):
         # ---- tree speculation (core/tree.py), the reference's gates ------
         self.max_branches = int(max_branches or 0)
         if self.max_branches:
@@ -151,6 +169,14 @@ class DecodeSession:
                 "target split) come with ROADMAP item A9")
         self.engine = engine
         self.device = engine.device
+        on_card = self.device.type == "cuda"
+        if capture and not on_card:
+            raise ValueError("graph capture runs on the card; a CPU session "
+                             "runs its steps eagerly (capture=None/False)")
+        self.capture = on_card if capture is None else bool(capture)
+        self._side = torch.cuda.Stream(self.device) if self.capture else None
+        self._round: Optional[CapturedStep] = None
+        self._insert: Optional[CapturedStep] = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.capacity = int(capacity)
@@ -276,12 +302,15 @@ class DecodeSession:
         self._done = torch.ones((B,), dtype=torch.bool, device=dev)
         self._nacc = torch.zeros((self.sync_every, B), **i32)
         self._nn = torch.zeros((self.sync_every, B), **i32)
-        # per-round scalars as preallocated device tensors: indexing them
-        # with a host int launches nothing and copies nothing
+        # per-round scalars: tables on the device, and the round step's
+        # static inputs, filled from them by one device-to-device copy each
         self._gamma_tab = torch.arange(self.gamma_max + 1, **i32)
         self._branch_tab = torch.arange(self.max_branches + 1, **i32)
         self._row_tab = torch.arange(self.sync_every, dtype=torch.long,
                                      device=dev)
+        self._gamma_in = torch.zeros((), **i32)
+        self._branch_in = torch.zeros((), **i32)
+        self._row_in = torch.zeros((), dtype=torch.long, device=dev)
         self._eos = torch.full((), self.eos_id, **i32)
         # the tree verdict's per-row counters (tree_verify_fused): zeroed
         # once here, left at zero by every launch, owned by this session
@@ -394,8 +423,10 @@ class DecodeSession:
         """Admit one request into the first free slot of a LIVE session:
         the prompt (right-padded to ``max_prompt_len``) is prefilled at
         batch size 1 and its cache row, anchor token and lifecycle entries
-        go into that slot. The request's first token exists when this
-        returns (per-request TTFT ends here)."""
+        go into that slot, through the session's insert step. The request's
+        first token exists when this returns (per-request TTFT ends here:
+        on the card the host waits for this insert on the stream, not for
+        the whole device)."""
         free = self.free
         if not free:
             raise RuntimeError("no free slot; retire a finished request first")
@@ -404,34 +435,61 @@ class DecodeSession:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         P = self.max_prompt_len
         assert 1 <= prompt.size <= P, (prompt.size, P)
-        padded = np.zeros((1, P), np.int32)
-        padded[0, :prompt.size] = prompt
         budget = min(int(max_new), self.max_new_cap)
-        dev = self.device
-        args = (self._state, self._out_buf, self._cursor, self._max_new,
-                self._done, torch.as_tensor(padded, device=dev),
-                torch.tensor([prompt.size], dtype=torch.int32, device=dev),
-                j, budget)
+        blocks = self._reserve_blocks(prompt.size, budget) if self.paged \
+            else {}
+        # the insert's static inputs in one host copy: padded prompt,
+        # length, slot, budget, then each paged side's block row
+        packed = np.zeros((P + 3,), np.int32)
+        packed[:prompt.size] = prompt
+        packed[P:] = (prompt.size, j, budget)
+        packed = np.concatenate([packed, *blocks.values()])
+        step = self._insert_step(tuple(b.shape[0] for b in blocks.values()))
+        step(admission=torch.from_numpy(packed))
         if self.paged:
-            blocks = self._reserve_blocks(prompt.size, budget)
-            insert = self.engine._insert_step_paged(
-                self.capacity, self.slots_len, P,
-                blocks["draft"].shape[0], blocks["target"].shape[0])
-            insert(*args, torch.as_tensor(blocks["draft"], device=dev),
-                   torch.as_tensor(blocks["target"], device=dev),
-                   generator=self._gen)
             self._slot_blocks[j] = {
                 s: [int(i) for i in ids if i >= 0]
                 for s, ids in blocks.items() if ids.size}
-        else:
-            insert = self.engine._insert_step(self.capacity, self.slots_len,
-                                              P)
-            insert(*args, generator=self._gen)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
         self._slots[j] = SlotRecord(request_id=request_id, max_new=budget,
                                     admit_it=self.iterations)
         return j
+
+    def _captured(self, body, inputs: dict) -> CapturedStep:
+        """A step of this session: its graph is captured on this session's
+        buffers (at temperature > 0 with the session's generator)."""
+        sampled = self.engine.temperature > 0.0
+        return CapturedStep(body, inputs, self.engine.graphs,
+                            capture=self.capture, stream=self._side,
+                            generator=self._gen if sampled else None)
+
+    def _insert_step(self, n_blocks: tuple) -> CapturedStep:
+        """The session's insert step (built at the first ``admit``): the
+        engine's dense or paged prefill-insert on this session's state and
+        lifecycle buffers, reading its inputs from views of one int32
+        device buffer (``n_blocks``: each paged side's block-row width)."""
+        if self._insert is None:
+            eng, P = self.engine, self.max_prompt_len
+            buf = torch.zeros((P + 3 + sum(n_blocks),), dtype=torch.int32,
+                              device=self.device)
+            args = (self._state, self._out_buf, self._cursor, self._max_new,
+                    self._done, buf[:P].view(1, P), buf[P:P + 1],
+                    buf[P + 1:P + 2], buf[P + 2:P + 3])
+            gen = self._gen
+            if self.paged:
+                d, t = n_blocks
+                fn = eng._insert_step_paged(self.capacity, self.slots_len, P,
+                                            d, t)
+                rows = (buf[P + 3:P + 3 + d], buf[P + 3 + d:])
+                body = lambda: fn(*args, *rows, generator=gen)
+            else:
+                fn = eng._insert_step(self.capacity, self.slots_len, P)
+                body = lambda: fn(*args, generator=gen)
+            self._insert = self._captured(body, {"admission": buf})
+        return self._insert
 
     def _reserve_blocks(self, prompt_len: int, budget: int
                         ) -> dict[str, np.ndarray]:
@@ -500,33 +558,49 @@ class DecodeSession:
             n = min(n, max_iters - self.iterations)
         if n <= 0 or not self.occupied:
             return 0
-        eng = self.engine
-        tree = bool(self.max_branches)
-        if tree:
-            step = functools.partial(
-                eng._tree_step(self.gamma_max, self.max_branches),
-                counters=self._tree_counters)
-        else:
-            step = functools.partial(eng._step_fn(self.gamma_max),
-                                     generator=self._gen)
+        step = self._round_step()
         chunk_t0 = time.perf_counter()
         chunk_gammas: list[int] = []
-        with no_host_sync(self.device):
-            for r in range(n):
-                gamma, _fused = self._decide(policy, q_depth)
-                chunk_gammas.append(gamma)
-                # a tree round's b rides between γ and the row index
-                shape = ((self._gamma_tab[gamma],
-                          self._branch_tab[self._branches_eff]) if tree
-                         else (self._gamma_tab[gamma],))
-                self._state = step(self._state, *shape, self._row_tab[r],
-                                   self._out_buf, self._cursor, self._nacc,
-                                   self._nn, self._max_new, self._done,
-                                   self._eos)
-                self.iterations += 1
+        for r in range(n):
+            gamma, _fused = self._decide(policy, q_depth)
+            chunk_gammas.append(gamma)
+            inputs = {"gamma": self._gamma_tab[gamma],
+                      "row": self._row_tab[r]}
+            if self.max_branches:
+                inputs["branches"] = self._branch_tab[self._branches_eff]
+            # capture synchronizes the device on entry: that call alone
+            # runs outside the guard
+            with (contextlib.nullcontext() if step.captures_next
+                  else no_host_sync(self.device)):
+                step(**inputs)
+            self.iterations += 1
         self._sync_and_attribute(n, chunk_gammas, chunk_t0,
-                                 colocated_rtt_ms=eng.rtt_ms)
+                                 colocated_rtt_ms=self.engine.rtt_ms)
         return n
+
+    def _round_step(self) -> CapturedStep:
+        """The session's round step (built at the first chunk): the engine's
+        tree step, or its linear step for the pair, on this session's state
+        and buffers, reading γ, b and the stats row from the static round
+        inputs."""
+        if self._round is None:
+            eng, st = self.engine, self._state
+            bufs = (self._out_buf, self._cursor, self._nacc, self._nn,
+                    self._max_new, self._done, self._eos)
+            ins = {"gamma": self._gamma_in, "row": self._row_in}
+            if self.max_branches:
+                fn = eng._tree_step(self.gamma_max, self.max_branches)
+                ins["branches"] = self._branch_in
+                counters = self._tree_counters
+                body = lambda: fn(st, ins["gamma"], ins["branches"],
+                                  ins["row"], *bufs, counters=counters)
+            else:
+                fn = eng._step_fn(self.gamma_max)
+                gen = self._gen
+                body = lambda: fn(st, ins["gamma"], ins["row"], *bufs,
+                                  generator=gen)
+            self._round = self._captured(body, ins)
+        return self._round
 
     def _sync_and_attribute(self, n: int, chunk_gammas: list[int],
                             chunk_t0: float,

@@ -5,7 +5,8 @@ slot-based scheduler, one draft–target pair colocated on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --target qwen3-14b --draft qwen2.5-3b --policy awc \
         --requests 8 --max-new 32 [--arrival-rate 8] [--temperature 0.0] \
-        [--paged-kv] [--full-size] [--device cuda|cpu] [--json]
+        [--paged-kv] [--full-size] [--device cuda|cpu] [--no-capture]
+        [--json]
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --target zamba2-1.2b --draft mamba2-130m --full-size
@@ -13,7 +14,11 @@ slot-based scheduler, one draft–target pair colocated on one device.
 The flags are the reference launcher's one-pair surface that the port
 runs (``repro/launch/serve.py``), plus ``--device`` (the card by default),
 ``--paged-kv``/``--kv-pool-blocks`` (the serving config's paged pool) and
-``--full-size``. ``--target``/``--draft`` take any name of the config zoo
+``--full-size``. On the card every session step is captured once as a
+CUDA graph and replayed (``captured_graphs`` 2 for a continuous server:
+one round step, one insert; ``graph_replays`` = rounds + admissions − the
+two warm-ups); ``--no-capture`` runs them eagerly for comparison.
+``--target``/``--draft`` take any name of the config zoo
 whose family the port runs: dense (qwen, llama2, deepseek, command-r), ssm
 (mamba2-130m) and hybrid (zamba2-1.2b); a pair with an ssm or hybrid side
 runs the engine's split step (verify from the window-start state, then
@@ -72,6 +77,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kv-pool-blocks", type=int, default=None,
                     help="pool blocks per paged side (default: dense "
                          "parity)")
+    ap.add_argument("--no-capture", action="store_true",
+                    help="run every step eagerly on the card instead of "
+                         "replaying captured CUDA graphs")
     ap.add_argument("--full-size", action="store_true",
                     help="published configs instead of the reduced ones")
     ap.add_argument("--json", action="store_true")
@@ -104,7 +112,8 @@ def run(argv=None) -> ServeRun:
     policy = make_window_policy(args.policy, gamma=args.gamma)
     server = SpecDecodeServer(engine, policy, ServerConfig(
         max_batch=args.max_batch, sync_every=args.sync_every,
-        paged_kv=args.paged_kv, kv_pool_blocks=args.kv_pool_blocks))
+        paged_kv=args.paged_kv, kv_pool_blocks=args.kv_pool_blocks,
+        capture=False if args.no_capture else None))
 
     rng = np.random.default_rng(args.seed)
     arrival = 0.0
@@ -143,6 +152,9 @@ def run(argv=None) -> ServeRun:
         "mean_tpot_ms": float(np.mean([r.tpot_ms for r in results])),
         "mean_e2e_ms": float(np.mean([r.e2e_ms for r in results])),
         "step_programs": engine.step_programs(),
+        "captured_graphs": engine.graphs.captured,
+        "graph_replays": engine.graphs.replays,
+        "graph_warm_ups": engine.graphs.warm_ups,
         "pairs": pairs,
     }
     return ServeRun(summary=summary, results=results, server=server,
@@ -161,7 +173,8 @@ def main(argv=None) -> int:
               f"ttft={s['mean_ttft_ms']:.1f}ms  "
               f"tpot={s['mean_tpot_ms']:.1f}ms  "
               f"e2e={s['mean_e2e_ms']:.0f}ms  "
-              f"programs={s['step_programs']}")
+              f"programs={s['step_programs']}  "
+              f"graphs={s['captured_graphs']}")
     return 0
 
 

@@ -314,13 +314,14 @@ def paged_update_layer(k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 
 def paged_insert_row(pool: PagedAttnCache, row: AttnCache,
-                     block_ids: torch.Tensor, slot: int) -> None:
+                     block_ids: torch.Tensor, slot: torch.Tensor) -> None:
     """Admission: scatter a freshly prefilled DENSE cache row (batch 1,
     S == pool.length) into the pool blocks ``block_ids`` ((n_log,) int32,
     −1 = unreserved tail) and point ``block_table[slot]`` at them, in
-    place. Every mapped block gets its k/v/pos_map fully rewritten (the
-    padded row tail carries pos −1), so a reused block can never leak its
-    previous tenant's entries."""
+    place. ``slot`` is a (1,) int64 index on the pool's device: a device
+    value, so a captured admission serves any slot. Every mapped block gets
+    its k/v/pos_map fully rewritten (the padded row tail carries pos −1), so
+    a reused block can never leak its previous tenant's entries."""
     L, S = row.k_buf.shape[0], row.k_buf.shape[2]
     NB, bs = pool.n_blocks, pool.block_size
     n_log = block_ids.shape[0]
@@ -346,7 +347,7 @@ def paged_insert_row(pool: PagedAttnCache, row: AttnCache,
     pool.k_buf[:, idx] = k_b.to(pool.k_buf.dtype)
     pool.v_buf[:, idx] = v_b.to(pool.v_buf.dtype)
     pool.pm_buf[:, idx] = pm_b
-    pool.block_table[slot] = ids.to(torch.int32)
+    pool.block_table.index_copy_(0, slot, ids[None].to(torch.int32))
 
 
 def paged_release_slot(pool: PagedAttnCache, slot: int) -> None:
@@ -444,13 +445,13 @@ def _batch_rows(cache) -> list:
     raise TypeError(f"no batch rows in {type(cache).__name__}")
 
 
-def insert_slot(dst, src, slot: int) -> None:
-    """Write batch row 0 of every leaf of ``src`` into batch row ``slot`` of
-    the matching leaf of ``dst``, in place (one layer-stacked copy per
-    leaf): dense attention, SSM and hybrid caches. Paged caches take
-    :func:`paged_insert_row`."""
+def insert_slot(dst, src, slot: torch.Tensor) -> None:
+    """Write batch row 0 of every leaf of ``src`` into batch row ``slot`` (a
+    (1,) int64 index on the cache's device) of the matching leaf of
+    ``dst``, in place (one layer-stacked copy per leaf): dense attention,
+    SSM and hybrid caches. Paged caches take :func:`paged_insert_row`."""
     for (d, _), (s, _) in zip(_batch_rows(dst), _batch_rows(src)):
-        d[:, slot] = s[:, 0]
+        d.index_copy_(1, slot, s[:, :1])
 
 
 def reset_slot(cache, slot: int) -> None:

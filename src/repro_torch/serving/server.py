@@ -85,6 +85,9 @@ class ServerConfig:
                                              # {"draft": n, "target": n};
                                              # None = dense-parity sizing
     kv_quantize: bool = False    # int8 per-entry KV quantization (paged)
+    capture: Optional[bool] = None  # replay each session step from a CUDA
+                                    # graph (None: on the card); False keeps
+                                    # the card's steps eager
 
 
 class RollingQuantile:
@@ -268,7 +271,8 @@ class SpecDecodeServer:
                              paged=self.cfg.paged_kv,
                              kv_block_size=self.cfg.kv_block_size,
                              kv_pool_blocks=self.cfg.kv_pool_blocks,
-                             kv_quantize=self.cfg.kv_quantize)
+                             kv_quantize=self.cfg.kv_quantize,
+                             capture=self.cfg.capture)
 
     def run(self) -> list[ServeResult]:
         """Drain the submitted stream; returns per-request results.

@@ -19,12 +19,16 @@ import torch
 
 from repro.configs.base import ModelConfig as JCfg
 from repro.core.engine import SpecDecodeEngine as JEngine
+from repro.core.session import DecodeSession as JSession
 from repro.core import specdec as jsd
 from repro.core.specdec import slot_stop_mask as j_slot_stop
 from repro.core.window import FeatureSnapshot as JFeat
 from repro.core.window import StaticWindowPolicy as JStatic
 from repro.core.window import make_window_policy as j_make_policy
 from repro.models.model import Model as JModel
+from repro.serving import ServeRequest as JRequest
+from repro.serving import ServerConfig as JServerConfig
+from repro.serving import SpecDecodeServer as JServer
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.base import ModelConfig as TCfg
 from repro_torch.core.engine import SpecDecodeEngine
@@ -349,6 +353,82 @@ def test_int8_paged_session_serves(pair, requests):
         got = res[r.request_id].tokens
         assert len(got) == r.max_new_tokens
         assert (got >= 0).all() and (got < 128).all()
+
+
+def _serve_both(pair, requests, **kw):
+    """The same stream, all arrived at t = 0 (so admission order depends
+    on the schedule alone), through the reference server and the port's,
+    static γ 3 at width 4, batch 2. Returns (reference, port) as (results
+    by request id, retirement order, pair summary)."""
+    jeng, teng = pair
+    out = []
+    for srv in (JServer(jeng, JStatic(3), JServerConfig(max_batch=2,
+                                                        pad_to=4, **kw)),
+                SpecDecodeServer(teng, StaticWindowPolicy(3), ServerConfig(
+                    max_batch=2, pad_to=4, **kw))):
+        req = JRequest if isinstance(srv, JServer) else ServeRequest
+        for r in requests:
+            srv.submit(req(r.request_id, r.prompt, r.max_new_tokens))
+        res = srv.run()
+        out.append(({r.request_id: r for r in res},
+                    [r.request_id for r in res],
+                    srv.pair_summaries()["pair0"]))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["random", "noised"])
+def test_server_stream_matches_reference(pair, requests, kind):
+    """The port's server against the reference ``SpecDecodeServer`` on one
+    request stream and bridged weights: per request the tokens and the
+    acceptance rate (from the same bit stream), the retirement order, and
+    the rounds run are equal — the admission path (insert into any slot,
+    retire, re-admit) included."""
+    (jres, jorder, jsum), (tres, torder, tsum) = _serve_both(
+        pair[kind], requests)
+    assert torder == jorder
+    for rid, j in jres.items():
+        np.testing.assert_array_equal(tres[rid].tokens, np.asarray(j.tokens))
+        assert tres[rid].acceptance_rate == j.acceptance_rate
+    assert (tsum["requests"], tsum["iterations"], tsum["acceptance_rate"]) \
+        == (jsum["requests"], jsum["iterations"], jsum["acceptance_rate"])
+    if kind == "noised":
+        assert tsum["acceptance_rate"] > 0
+
+
+def test_int8_paged_session_matches_reference(pair, prompts):
+    """int8 K/V pools (block size 4, a pool below dense parity) against the
+    reference's int8 paged session: admit two requests, retire each as it
+    finishes and admit the next into its slot; every request's tokens and
+    acceptance bits, the rounds and the session's accept counts are
+    equal."""
+    jeng, teng = pair["noised"]
+    p, lens = prompts
+    reqs = [(p[i, :lens[i]], m) for i, m in enumerate((10, 7, 9))]
+    runs = []
+    for cls, eng in ((JSession, jeng), (DecodeSession, teng)):
+        sess = cls(eng, capacity=2, max_new_cap=MAX_NEW, max_prompt_len=12,
+                   gamma_max=GMAX, sync_every=2, paged=True,
+                   kv_block_size=4, kv_pool_blocks=14, kv_quantize=True)
+        pending, outs = list(enumerate(reqs)), {}
+        for _ in range(40):
+            while pending and sess.free and sess.can_admit(
+                    pending[0][1][0].size, pending[0][1][1]):
+                rid, (prompt, budget) = pending.pop(0)
+                sess.admit(prompt, budget, request_id=rid)
+            if not sess.occupied:
+                break
+            sess.run_chunk(StaticWindowPolicy(3) if cls is DecodeSession
+                           else JStatic(3))
+            for j in sess.finished_slots():
+                toks, rec = sess.retire(j)
+                outs[rec.request_id] = (np.asarray(toks), rec.bits)
+        runs.append((outs, sess.iterations, sess.accepted, sess.proposed))
+    (jout, *jstats), (tout, *tstats) = runs
+    assert tstats == jstats and set(tout) == set(jout) == {0, 1, 2}
+    for rid, (toks, bits) in jout.items():
+        np.testing.assert_array_equal(tout[rid][0], toks)
+        assert tout[rid][1] == bits
+    assert tstats[1] > 0
 
 
 def test_two_pairs_round_robin_and_drain(pair, requests):

@@ -123,7 +123,7 @@ def test_insert_and_reset_slot():
     src.k_buf.fill_(3.0)
     src.pm_buf[:, 0] = torch.arange(6, dtype=torch.int32)
     dst = tkv.init_attn_cache(2, 3, 6, HKV, HD, torch.float32, "cpu")
-    tkv.insert_slot(dst, src, 1)
+    tkv.insert_slot(dst, src, torch.tensor([1]))
     assert (dst.k[:, 1] == 3.0).all() and (dst.k[:, [0, 2]] == 0).all()
     assert (dst.pos_map[:, 1] == torch.arange(6)).all()
     tkv.reset_slot(dst, 1)
@@ -197,7 +197,7 @@ def test_paged_insert_release_match():
     tpool = tkv.init_paged_attn_cache(L, 2, length, NB, bs, HKV, HD,
                                       torch.float32, "cpu")
     tpool.pm_buf.fill_(99)
-    tkv.paged_insert_row(tpool, trow, t(ids), 1)
+    tkv.paged_insert_row(tpool, trow, t(ids), torch.tensor([1]))
     np.testing.assert_array_equal(tpool.k.numpy(), np.asarray(jpool.k))
     np.testing.assert_array_equal(tpool.v.numpy(), np.asarray(jpool.v))
     np.testing.assert_array_equal(tpool.pos_map.numpy(),
