@@ -59,7 +59,30 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               rounds + admissions − warm-ups; then the bf16 qwen dense
               static γ 4 serve at QWEN_CUT depth eager and captured back to
               back (walls, TPOT, device busy share, equal launch counts);
-6. serve    — the qwen3-14b target ← qwen2.5-3b draft pair in bf16
+6. distributed — the draft/target split, half-duplex rounds over a
+              transport, every worker program captured once per session:
+              float32 at the exact phases' depths, qwen3-14b ← qwen2.5-3b
+              servers over the in-process transport, a 20 ms emulated link
+              (virtual clock) and a TCP loopback socket, under mode
+              distributed (static γ 4), fused and auto (γ and fused
+              changing every round), dense and paged (pool at 60 % of
+              parity) — tokens == the colocated server's == target greedy,
+              messages = 2·distributed rounds + 2·control round trips,
+              graphs per step as called; a noised-draft tree session
+              (γ_max 8, b_max 3, static 4 × 3) over the in-process
+              transport == colocated == target greedy, acceptance in
+              (0, 1); zamba2 ← mamba2 == colocated == target greedy; at
+              T 1.0 on one seed in-process == colocated; then bf16
+              through ``repro_torch.launch.serve``: qwen static γ 4 at the
+              published depth colocated, over ``--link-rtt-ms 0`` and over
+              a 15 ms link (jitter 1 ms, 1 Gbps), AWC over the 15 ms link
+              and T 1.0 over link 0 at QWEN_CUT, zamba2 ← mamba2 at the
+              published depth over the 15 ms link — complete outputs,
+              exact launch counts, messages, the measured RTT within ±1 ms
+              of the link model's, the measured wait ≥ 0.95 × the sampled
+              delays, graphs per step; a profiled short serve colocated
+              and over link 0 (busy share);
+7. serve    — the qwen3-14b target ← qwen2.5-3b draft pair in bf16
               through ``repro_torch.launch.serve``: dense and paged static
               γ=4 at the published depth, dense AWC at QWEN_CUT depth
               (every width as published), each checked for complete
@@ -77,14 +100,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               and B3a = B3b = rounds (every greedy and tree run: B3 = 0);
               every run replays its rounds and admissions from captured
               graphs (2 per server, 1 per wave session: checked);
-7. exact_ssm — float32, published widths: zamba2-1.2b (8 layers: one
+8. exact_ssm — float32, published widths: zamba2-1.2b (8 layers: one
               shared-attention segment and a 2-layer tail) ← mamba2-130m
               (2 layers), vocab 32000, through the server: greedy tokens ==
               a target-only greedy decode; zamba2 and mamba2-130m
               self-speculation at acceptance 1.0 with their models' greedy
               tokens; at temperature 1.0 zamba2 self-speculation accepts
               ≥ 0.99 and a seed fixes the pair's tokens;
-8. serve_ssm — the full zamba2-1.2b ← mamba2-130m pair in bf16 through
+9. serve_ssm — the full zamba2-1.2b ← mamba2-130m pair in bf16 through
               ``repro_torch.launch.serve`` (static γ 4, greedy and
               ``--temperature 1.0``): complete outputs, 2 step keys and 2
               captured graphs, B5 = rounds·38 + admissions·(38 + 24), B1 =
@@ -92,7 +115,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               0 greedy; a profile.
 The decode rounds of every chunk run under
 ``torch.cuda.set_sync_debug_mode("error")`` (all but the one call per
-session that captures its round step: capture synchronizes the device).
+session step that captures it: capture synchronizes the device); a
+transport round runs each device segment between its host crossings
+under it.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, the card's
 name and power limit, and the last line ``{"ok": true, "device": {...}}``.
@@ -112,8 +137,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "exact", "capture", "serve",
-          "exact_ssm", "serve_ssm")
+PHASES = ("device", "build", "kernels", "exact", "capture", "distributed",
+          "serve", "exact_ssm", "serve_ssm")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
@@ -1539,13 +1564,15 @@ class WinnerLog:
 
 
 def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
-                 log=None, seed: int = 0, capture=None) -> dict:
+                 log=None, seed: int = 0, capture=None,
+                 transport=None) -> dict:
     """Decode ``reqs`` wave by wave (``batch`` at a time) through
     ``DecodeSession`` as ``benchmarks/bench_tree.py`` run_cell drives it:
     ``admit_batch`` the wave, ``run_chunk`` until every row stops,
     ``snapshot``. ``capture`` goes to each session (None: rounds replayed
-    from the session's captured graph). Returns per-request tokens and the
-    summed statistics."""
+    from the session's captured graph), and so does ``transport`` (the
+    split rounds over it; None: colocated). Returns per-request tokens and
+    the summed statistics."""
     from repro_torch.core.session import DecodeSession
     out = {"tokens": {}, "bits": {}, "rounds": 0, "fused": 0, "waves": 0,
            "accepted": 0, "proposed": 0, "wall_s": 0.0,
@@ -1560,7 +1587,7 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
         sess = DecodeSession(eng, capacity=len(wave), max_new_cap=max_new,
                              gamma_max=GAMMA_MAX, sync_every=8,
                              max_branches=max_branches, seed=seed + w0,
-                             capture=capture)
+                             capture=capture, transport=transport)
         if log is not None:
             log.sess = sess
         t0 = time.perf_counter()
@@ -2024,6 +2051,427 @@ def eager_against_captured(torch, kernels) -> None:
              f"({eag['launches']} vs {cap['launches']})")
     if cap["graphs"] != want_graphs(2, cap["iterations"] + cap["requests"]):
         fail(f"eager vs captured: graphs {cap['graphs']}")
+
+
+# ------------------------------------------------ distributed split (A9)
+
+# the kernels the distributed phase must launch: B1 in every draft step and
+# verify, B2 in the paged transport servers, B4 in the tree session, B3 in
+# the sampled rounds, B5 in the zamba2 verify and prefill
+DIST_KERNELS = ("decode_attn", "paged_decode_attn", "tree_verify",
+                "gather_reduce", "cdf_sample", "ssd_scan")
+LINK15 = ["--link-rtt-ms", "15", "--link-jitter-ms", "1",
+          "--link-bw-gbps", "1"]
+
+
+def want_step_graphs(calls: dict) -> dict:
+    """Graphs of one session's captured steps called ``calls[name]`` times
+    each: a step's first call warms up, its second captures and replays,
+    every later call replays (a step called once never captures)."""
+    return {"captured": sum(1 for n in calls.values() if n >= 2),
+            "replays": sum(max(0, n - 1) for n in calls.values()),
+            "warm_ups": sum(1 for n in calls.values() if n >= 1)}
+
+
+def split_calls(rounds: int, fused: int, admissions: int,
+                recurrent_draft: bool) -> dict:
+    """Calls of each captured step of a transport server session: one
+    insert per admission, a propose per distributed round, a verify per
+    round (γ 0 in a fused round), an ingest per fused round, and for a
+    recurrent draft an advance per distributed round."""
+    calls = {"insert": admissions, "propose": rounds - fused,
+             "verify": rounds, "ingest": fused}
+    if recurrent_draft:
+        calls["advance"] = rounds - fused
+    return calls
+
+
+def _add(totals: dict, launches: dict) -> None:
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+
+
+def distributed_exact(torch, kernels) -> dict:
+    """Float32 at the published widths and the exact phases' depths: the
+    half-duplex transport rounds commit the colocated session's tokens and
+    the target-only greedy decode. qwen3-14b ← qwen2.5-3b (8 requests × 32
+    tokens through 4-slot servers) over the in-process transport, a 20 ms
+    emulated link on the virtual clock and a TCP loopback socket, each
+    under mode ``distributed`` (static γ 4), ``fused`` and ``auto`` with
+    γ and fused changing every round, dense and paged (pool at 60 % of
+    parity): tokens == the colocated server's == target greedy, messages
+    == 2·distributed rounds + 2·control round trips, graphs per step as
+    called. A tree session (noised draft, γ_max 8, b_max 3, static 4 × 3)
+    over the in-process transport == the colocated tree session == target
+    greedy, acceptance strictly between 0 and 1. zamba2 ← mamba2 (the
+    recurrent draft re-advanced by the received verdict) == colocated ==
+    target greedy. At T = 1.0 on one seed, mode distributed: in-process
+    wave sessions == colocated ones. Returns the launch counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    from repro_torch.distributed import (EmulatedLinkTransport,
+                                         InProcessTransport, SocketTransport)
+    from repro_torch.sim.network import LinkSpec
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    t_cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=2,
+                                dtype="float32")
+    d_cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2,
+                                dtype="float32")
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    reqs = _workload(np, t_cfg.vocab)
+    P = 16 * math.ceil(max(r.prompt.size for r in reqs) / 16)
+    slots = P + 32 + 2 * GAMMA_MAX + 18
+    parity = 4 * math.ceil(slots / 16)
+    ref = {r.request_id: _greedy(torch, eng.target, eng.target_params,
+                                 r.prompt, r.max_new_tokens, slots, dev)[0]
+           for r in reqs}
+    layouts = {"dense": {},
+               "paged": dict(paged_kv=True, kv_pool_blocks=int(0.6 * parity))}
+    colo = {}
+    for lay, kw in layouts.items():
+        _, res = _serve(eng, StaticWindowPolicy(4), reqs, **kw)
+        colo[lay] = {i: r.tokens for i, r in res.items()}
+    transports = {
+        "in-process": InProcessTransport,
+        "emulated 20/1/1 virtual": lambda: EmulatedLinkTransport(
+            LinkSpec(20.0, 1.0, 1.0), seed=0, sleep=False),
+        "socket loopback": lambda: SocketTransport.loopback(timeout_s=60.0)}
+    modes = {"distributed": lambda: StaticWindowPolicy(4),
+             "fused": lambda: StaticWindowPolicy(4),
+             "auto": CyclePolicy}
+    rows, bad = [], []
+    for lay, kw in layouts.items():
+        for tname, make_tr in transports.items():
+            for mode, make_pol in modes.items():
+                tr = make_tr()
+                g0 = graph_counts(eng)
+                kernels.reset_launches()
+                try:
+                    srv, res = _serve(eng, make_pol(), reqs, transport=tr,
+                                      mode_policy=mode, **kw)
+                finally:
+                    if isinstance(tr, SocketTransport):
+                        tr.close()
+                _add(totals, kernels.LAUNCHES)
+                sess = srv._sessions[0]
+                rounds, fused = sess.iterations, sess.fused_iterations
+                got = {i: r.tokens for i, r in res.items()}
+                same = sorted(got) == sorted(ref) and all(
+                    np.array_equal(got[i], ref[i])
+                    and np.array_equal(got[i], colo[lay][i]) for i in ref)
+                graphs = graphs_since(eng, g0)
+                want = want_step_graphs(split_calls(rounds, fused, len(reqs),
+                                                    False))
+                msgs = 2 * (rounds - fused) + 2 * sess.control_roundtrips
+                row = {"layout": lay, "transport": tname, "mode": mode,
+                       "rounds": rounds, "fused": fused,
+                       "messages": tr.messages_sent,
+                       "control_roundtrips": sess.control_roundtrips,
+                       "graphs": graphs, "equal": same}
+                rows.append(row)
+                if not same:
+                    bad.append(row)
+                if graphs != want or tr.messages_sent != msgs:
+                    fail(f"distributed {lay}/{tname}/{mode}: graphs {graphs} "
+                         f"(expected {want}), messages {tr.messages_sent} "
+                         f"(expected {msgs})")
+    emit({"phase": "distributed", "check": "transports == colocated == "
+          "target greedy", "dtype": "float32", "target": t_cfg.name,
+          "draft": d_cfg.name, "layers": 2, "requests": len(reqs),
+          "runs": rows, "mismatches": bad,
+          "seconds": time.perf_counter() - t0})
+    if bad:
+        fail(f"distributed tokens differ: {bad}")
+
+    # tree: noised draft, grid over the in-process transport
+    t1 = time.perf_counter()
+    tree = SpecDecodeEngine(t_cfg, t_cfg, target_params=eng.target_params,
+                            draft_params=noised_copy(torch, eng.target_params,
+                                                     TREE_NOISE, 7),
+                            gamma_max=GAMMA_MAX, device=dev)
+    tref = {r.request_id: _greedy(torch, eng.target, eng.target_params,
+                                  r.prompt, r.max_new_tokens,
+                                  r.prompt.size + 64, dev)[0] for r in reqs}
+    pol = lambda: StaticWindowPolicy(4, branches=B_MAX)
+    col = run_sessions(np, tree, reqs, pol(), B_MAX)
+    tr = InProcessTransport()
+    g0 = graph_counts(tree)
+    kernels.reset_launches()
+    dist = run_sessions(np, tree, reqs, pol(), B_MAX, transport=tr)
+    _add(totals, kernels.LAUNCHES)
+    graphs = graphs_since(tree, g0)
+    want = want_graphs(3 * dist["waves"], 3 * dist["rounds"])
+    same = all(np.array_equal(dist["tokens"][i], tref[i])
+               and np.array_equal(col["tokens"][i], tref[i]) for i in tref)
+    emit({"phase": "distributed", "check": "tree over in-process == "
+          "colocated tree == target greedy", "dtype": "float32",
+          "gamma": 4, "branches": B_MAX,
+          "acceptance": {"transport": dist["acceptance"],
+                         "colocated": col["acceptance"]},
+          "rounds": {"transport": dist["rounds"],
+                     "colocated": col["rounds"]},
+          "messages": tr.messages_sent, "graphs": graphs,
+          "expected_graphs": want, "equal": same,
+          "seconds": time.perf_counter() - t1})
+    if not same:
+        fail("distributed tree tokens differ")
+    if not 0.0 < dist["acceptance"] < 1.0:
+        fail(f"distributed tree acceptance {dist['acceptance']} is not "
+             "strictly between 0 and 1")
+    if graphs != want or tr.messages_sent != 2 * dist["rounds"]:
+        fail(f"distributed tree: graphs {graphs} (expected {want}), "
+             f"messages {tr.messages_sent}")
+    del tree
+
+    # T = 1.0, one seed, mode distributed: wave sessions (one generator each)
+    t1 = time.perf_counter()
+    samp = SpecDecodeEngine(d_cfg, t_cfg, draft_params=eng.draft_params,
+                            target_params=eng.target_params,
+                            temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                            device=dev)
+    kernels.reset_launches()
+    runs = {"colocated": run_sessions(np, samp, reqs, StaticWindowPolicy(4),
+                                      0, seed=3),
+            "transport": run_sessions(np, samp, reqs, StaticWindowPolicy(4),
+                                      0, seed=3,
+                                      transport=InProcessTransport())}
+    _add(totals, kernels.LAUNCHES)
+
+    def equal(a, b):
+        return all(np.array_equal(a["tokens"][i], b["tokens"][i])
+                   and a["bits"][i] == b["bits"][i] for i in a["tokens"])
+    same = equal(runs["colocated"], runs["transport"])
+    info = {"phase": "distributed", "check": "T=1 in-process == colocated "
+            "on one seed", "temperature": SAMPLED_T,
+            "captured_transport_equals_captured_colocated": same,
+            "acceptance": runs["transport"]["acceptance"]}
+    if not same:
+        # the draws' order is the colocated step's; what may differ on the
+        # card is how two graphs' registered Philox offsets advance. Then
+        # the check is: eager transport == eager colocated (the order) and
+        # captured transport == eager transport (the capture)
+        for name in ("colocated", "transport"):
+            runs[f"{name}_eager"] = run_sessions(
+                np, samp, reqs, StaticWindowPolicy(4), 0, seed=3,
+                capture=False, transport=(InProcessTransport()
+                                          if name == "transport" else None))
+        info.update(
+            eager_transport_equals_eager_colocated=equal(
+                runs["colocated_eager"], runs["transport_eager"]),
+            captured_transport_equals_eager_transport=equal(
+                runs["transport"], runs["transport_eager"]))
+    info["seconds"] = time.perf_counter() - t1
+    emit(info)
+    if not same and not (info["eager_transport_equals_eager_colocated"]
+                         and info["captured_transport_equals_eager_"
+                                  "transport"]):
+        fail(f"T=1 distributed: {info}")
+    del samp, eng
+    torch.cuda.empty_cache()
+
+    # zamba2 <- mamba2: the recurrent draft re-advanced by the verdict
+    t1 = time.perf_counter()
+    st_cfg, sd_cfg = ssm_pair_cfgs(full=False)
+    ssm = SpecDecodeEngine(sd_cfg, st_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    sreqs = _workload(np, st_cfg.vocab)
+    P = 16 * math.ceil(max(r.prompt.size for r in sreqs) / 16)
+    sref = {r.request_id: _greedy(torch, ssm.target, ssm.target_params,
+                                  r.prompt, r.max_new_tokens,
+                                  P + 32 + 2 * GAMMA_MAX + 18, dev)[0]
+            for r in sreqs}
+    _, col = _serve(ssm, StaticWindowPolicy(4), sreqs)
+    tr = InProcessTransport()
+    g0 = graph_counts(ssm)
+    kernels.reset_launches()
+    srv, dist = _serve(ssm, StaticWindowPolicy(4), sreqs, transport=tr,
+                       mode_policy="distributed")
+    _add(totals, kernels.LAUNCHES)
+    sess = srv._sessions[0]
+    graphs = graphs_since(ssm, g0)
+    want = want_step_graphs(split_calls(sess.iterations, 0, len(sreqs),
+                                        True))
+    same = all(np.array_equal(dist[i].tokens, sref[i])
+               and np.array_equal(col[i].tokens, sref[i]) for i in sref)
+    emit({"phase": "distributed", "check": "zamba2 <- mamba2 over "
+          "in-process == colocated == target greedy", "dtype": "float32",
+          "target": f"{st_cfg.name} ({st_cfg.n_layers} layers)",
+          "draft": f"{sd_cfg.name} ({sd_cfg.n_layers} layers)",
+          "rounds": sess.iterations, "messages": tr.messages_sent,
+          "graphs": graphs, "expected_graphs": want, "equal": same,
+          "seconds": time.perf_counter() - t1})
+    if not same:
+        fail("distributed zamba2 <- mamba2 tokens differ")
+    if graphs != want or tr.messages_sent != 2 * sess.iterations:
+        fail(f"distributed zamba2: graphs {graphs} (expected {want})")
+    del ssm, srv
+    torch.cuda.empty_cache()
+    return totals
+
+
+def distributed_serve(torch, kernels) -> dict:
+    """bf16 through ``repro_torch.launch.serve`` (8 requests × 32 tokens,
+    batch 4, γ_max 8): qwen3-14b ← qwen2.5-3b at the published depth,
+    static γ 4, colocated (the yardstick, in this call), over the
+    in-process transport (``--link-rtt-ms 0``) and over a 15 ms emulated
+    link (jitter 1 ms, 1 Gbps); at QWEN_CUT, AWC over the 15 ms link and
+    T = 1.0 over ``--link-rtt-ms 0``; zamba2 ← mamba2 at the published
+    depth over the 15 ms link. Each: complete in-range outputs, exact
+    launch counts (B1 = distributed rounds·(γ_max·L_d + L_t) + fused
+    rounds·(L_d + L_t) + admissions·(L_d + L_t); zamba2 B5 = rounds·L_t +
+    admissions·(L_t + L_d), B1 = rounds·n_seg·(γ_max + 2) +
+    admissions·n_seg; B3a = B3b = verify calls at T > 0), messages =
+    2·distributed rounds + 2·control round trips, the measured RTT within
+    ±1 ms of the link model's, the measured wait ≥ 0.95 × the sampled
+    delays, graphs per step as called. Then a short profiled serve
+    colocated and over the in-process transport (busy share). Returns the
+    launch counts."""
+    from repro_torch.launch import serve
+    from repro_torch.sim.network import (LinkSpec, expected_rtt_ms,
+                                         verdict_payload_bytes,
+                                         window_payload_bytes)
+    qwen = ["--target", "qwen3-14b", "--draft", "qwen2.5-3b", "--full-size",
+            "--max-batch", "4", "--requests", "8", "--max-new", "32",
+            "--gamma-max", str(GAMMA_MAX), "--seed", "0", "--json"]
+    zamba = list(qwen)
+    zamba[1], zamba[3] = "zamba2-1.2b", "mamba2-130m"
+    static = ["--policy", "static", "--gamma", "4"]
+    link0 = ["--link-rtt-ms", "0"]
+    t1 = ["--temperature", str(SAMPLED_T)]
+    runs = [("qwen colocated static", qwen + static, False),
+            ("qwen link0 static", qwen + static + link0, False),
+            ("qwen link15 static", qwen + static + LINK15, False),
+            ("qwen link15 awc", qwen + ["--policy", "awc"] + LINK15, True),
+            ("qwen link0 static T=1", qwen + static + link0 + t1, True),
+            ("zamba2 link15 static", zamba + static + LINK15, False)]
+    spec15 = LinkSpec(15.0, 1.0, 1.0)
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    card = smi_line()
+    for name, argv, cut in runs:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with depth_cut(serve, QWEN_CUT if cut else {}):
+            out = serve.run(argv)
+        launches = dict(kernels.LAUNCHES)
+        s = out.summary
+        eng, sess = out.server.engine, out.server._sessions[0]
+        tr = out.server.pairs[0].transport
+        L_d, L_t = eng.draft_cfg.n_layers, eng.target_cfg.n_layers
+        R, F, A = sess.iterations, sess.fused_iterations, s["requests"]
+        D = R - F
+        sampled = "--temperature" in argv
+        want = {k: 0 for k in kernels.LAUNCHES}
+        b3 = R if sampled else 0
+        if eng.target_cfg.arch_type == "hybrid":
+            n_seg = L_t // eng.target_cfg.attn_every
+            want.update(ssd_scan=R * L_t + A * (L_t + L_d),
+                        decode_attn=R * n_seg * (GAMMA_MAX + 2) + A * n_seg)
+        elif tr is None:
+            want.update(decode_attn=R * (GAMMA_MAX * L_d + L_t)
+                        + A * (L_d + L_t))
+        else:
+            want.update(decode_attn=D * (GAMMA_MAX * L_d + L_t)
+                        + (F + A) * (L_d + L_t))
+        want.update(gather_reduce=b3, cdf_sample=b3)
+        V = eng.target_cfg.vocab
+        full = all(len(r.tokens) == 32 and (r.tokens >= 0).all()
+                   and (r.tokens < V).all() for r in out.results)
+        graphs = summary_graphs(s)
+        if tr is None:
+            graphs_want = want_graphs(2, R + A)
+        else:
+            graphs_want = want_step_graphs(split_calls(
+                R, F, A, not eng._draft_attention))
+        info = {"phase": "distributed", "run": name, "card": card,
+                "layers": [L_d, L_t], "requests": A,
+                "tokens": s["tokens"], "wall_s": s["wall_s"],
+                "tokens_per_s": s["tokens_per_s"],
+                "mean_tpot_ms": s["mean_tpot_ms"],
+                "mean_ttft_ms": s["mean_ttft_ms"],
+                "mean_acceptance": s["mean_acceptance"],
+                "rounds": R, "fused_rounds": F,
+                "fused_fraction": s["pairs"]["pair0"]["fused_fraction"],
+                "decode_ms_per_round": sess.decode_wall_s * 1e3 / max(1, R),
+                "link_ms": sess.link_ms, "graphs": graphs,
+                "expected_graphs": graphs_want, "launches": launches,
+                "expected_launches": want, "all_full_in_range": full,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 2**30,
+                "seconds": time.perf_counter() - t0}
+        problems = []
+        if tr is not None:
+            msgs = 2 * D + 2 * sess.control_roundtrips
+            delays = tr.delay_log["window"] + tr.delay_log["verdict"]
+            sampled_ms = sum(delays)
+            spec = getattr(tr, "spec", None)
+            rtt_want = 0.0 if spec is None else expected_rtt_ms(
+                spec, 4 * window_payload_bytes(4),
+                4 * verdict_payload_bytes(4))
+            info.update(transport=s["transport"],
+                        link_messages=s["link_messages"],
+                        expected_messages=msgs,
+                        control_roundtrips=sess.control_roundtrips,
+                        link_bytes_sent=s["link_bytes_sent"],
+                        link_recent_rtt_ms=s["link_recent_rtt_ms"],
+                        expected_rtt_ms=rtt_want,
+                        sampled_delay_ms=sampled_ms,
+                        link_wait_over_sampled=(sess.link_ms / sampled_ms
+                                                if sampled_ms else None))
+            if s["link_messages"] != msgs:
+                problems.append("messages")
+            if abs(tr.recent_rtt_ms - rtt_want) > 1.0:
+                problems.append("rtt")
+            if len(delays) != tr.messages_sent or (
+                    sess.link_ms < 0.95 * sampled_ms):
+                problems.append("link wait")
+            if spec is not None and spec.rtt_ms != spec15.rtt_ms:
+                problems.append("link spec")
+        emit(info)
+        if A != 8 or not full:
+            problems.append("incomplete or out-of-range outputs")
+        if launches != want:
+            problems.append(f"launches {launches}, expected {want}")
+        if graphs != graphs_want:
+            problems.append(f"graphs {graphs}, expected {graphs_want}")
+        if problems:
+            fail(f"distributed {name}: {problems}")
+        if tr is not None:
+            _add(totals, launches)
+        del out, eng, sess, tr
+        torch.cuda.empty_cache()
+    # where a round's time goes, colocated against in-process: 4 requests
+    # × 8 tokens at QWEN_CUT, profiled
+    from torch.profiler import ProfilerActivity, profile
+    short = list(qwen)
+    short[short.index("--requests") + 1] = "4"
+    short[short.index("--max-new") + 1] = "8"
+    for name, extra in (("colocated", []), ("link0", link0)):
+        with depth_cut(serve, QWEN_CUT), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            out = serve.run(short + static + extra)
+            torch.cuda.synchronize()
+        s = out.summary
+        line = profile_summary(prof, f"distributed qwen {name} static 4x8, "
+                               "QWEN_CUT", s["iterations"], s["requests"],
+                               s["wall_s"])
+        line["top_kernels"] = line["top_kernels"][:6]
+        emit(line)
+        del out, prof
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_distributed(torch, kernels) -> dict:
+    totals = distributed_exact(torch, kernels)
+    _add(totals, distributed_serve(torch, kernels))
+    return totals
 
 
 def _agreement(torch, out, dev) -> dict:
@@ -2554,9 +3002,16 @@ def main(argv=None) -> int:
         seconds["capture"] = time.perf_counter() - t0
     totals, idle = {}, []
     t0 = time.perf_counter()
+    if "distributed" in phases:
+        dist_totals = phase_distributed(torch, kernels)
+        idle += [k for k in DIST_KERNELS if not dist_totals[k]]
+        _add(totals, dist_totals)
+        seconds["distributed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     if "serve" in phases:
-        totals = phase_serve(torch, kernels)
-        idle += [k for k in SERVE_KERNELS if not totals[k]]
+        serve_totals = phase_serve(torch, kernels)
+        idle += [k for k in SERVE_KERNELS if not serve_totals[k]]
+        _add(totals, serve_totals)
         seconds["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if "exact_ssm" in phases:

@@ -15,12 +15,13 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
+# fused-mode tokens stream edge-ward one control round trip per this many
+# committed tokens: the link model's constant
+from ...sim.network import DEFAULT_FUSED_CHUNK
+
 # [q_depth, alpha_recent, rtt_ms, tpot_ms, gamma_prev, pipe_hit_recent,
 #  branches_prev]
 FEATURE_DIM = 7
-# fused-mode tokens stream edge-ward one control round trip per this many
-# committed tokens (the reference's sim/network.DEFAULT_FUSED_CHUNK)
-DEFAULT_FUSED_CHUNK = 8
 
 
 class WCDNNParams(NamedTuple):

@@ -45,8 +45,12 @@ serves every round: on the card the session captures it once as a CUDA
 graph and replays it (:mod:`.capture`), on the CPU it runs eagerly.
 :meth:`SpecDecodeEngine.step_programs` counts the distinct step keys built
 (``("fused", γ_max)``, ``("split", γ_max)``, ``("tree", d_max, b_max)``,
-``("insert", …)``, ``("insert-paged", …)``, ``("release",)``), the
-quantity that must not grow with γ/b changes or admission churn;
+``("insert", …)``, ``("insert-paged", …)``, ``("release",)``, and the
+split workers' ``("dw_propose", γ_max)``, ``("tw_verify", γ_max)``,
+``("dw_advance", γ_max)``, ``("dw_ingest",)``, ``("dw_propose_tree", …)``,
+``("tw_verify_tree", …)``, ``("dw_ingest_tree", …)`` of a session over a
+transport, :meth:`split_workers`), the quantity that must not grow with
+γ/b changes or admission churn;
 ``graphs`` counts the graphs the engine's sessions captured and replayed.
 Graphs belong to the session whose buffers they were captured on: a
 second session captures its own. The wave prefill (``admit_batch``) and
@@ -171,6 +175,8 @@ class GenerationStats:
     gamma_seq: list = field(default_factory=list)
     produced: Any = None             # (B,) per-sequence tokens produced
                                      # (anchor included; ≤ max_new)
+    pipeline_hits: int = 0           # optimistic windows kept (pipelined
+    pipeline_misses: int = 0         # mode, not ported yet: 0) / rolled back
 
     @property
     def acceptance_rate(self) -> float:
@@ -224,10 +230,20 @@ class SpecDecodeEngine:
         self._target_attention = target_cfg.has_attention_cache
         self._draft_attention = draft_cfg.has_attention_cache
         self.step_keys: set = set()
-        self._tree_specs: dict = {}      # (d_max, b_max) → device tables
+        self._tree_specs: dict = {}      # ("tree", d_max, b_max) → tables
         # graphs captured / replays / warm-ups of this engine's sessions:
         # a continuous server on the card captures 2 (round step, insert)
         self.graphs = GraphCounts()
+
+    def split_workers(self):
+        """The engine split at the wire: ``(DraftWorker, TargetWorker)``
+        (``distributed/workers.py``). They share this engine's models,
+        params and ``step_keys``, so :meth:`step_programs` counts their
+        programs too. Made per call and not kept: a worker refers to the
+        engine, and an engine that kept its workers would be a reference
+        cycle, its weights freed only by the garbage collector."""
+        from ..distributed.workers import DraftWorker, TargetWorker
+        return DraftWorker(self), TargetWorker(self)
 
     def step_programs(self) -> int:
         """Distinct step keys built so far (the reference's compiled-program
@@ -281,28 +297,57 @@ class SpecDecodeEngine:
                                    self.draft_params, self.target_params,
                                    state, gamma_max, active_gamma,
                                    self.temperature, generator)
-            stop = slot_stop_mask(res.num_new, res.n_accepted,
-                                  res.new_tokens, cursor, max_new, done,
-                                  eos_id)
-            if split:
-                # committed[t] enters the state when the next window runs
-                # it, so the advance feeds last_token then the first
-                # num_new − 1 committed tokens; masked steps (t ≥ num_new)
-                # read any valid id in place of the −1 pad
-                adv = torch.cat([state.last_token[:, None],
-                                 res.new_tokens[:, :gamma_max].clamp_min(0)],
-                                dim=1)
-                _scan_cache_advance(self.target.decode_step,
-                                    self.target_params, state.target_cache,
-                                    adv, state.pos, stop.num_new)
-                if not self._draft_attention:
-                    _scan_cache_advance(draft_decode, self.draft_params,
-                                        state.draft_cache, adv, state.pos,
-                                        stop.num_new)
+            stop, adv = self._stop_and_advance(state, res, cursor, max_new,
+                                               done, eos_id, split)
+            if split and not self._draft_attention:
+                _scan_cache_advance(draft_decode, self.draft_params,
+                                    state.draft_cache, adv, state.pos,
+                                    stop.num_new)
             _commit(state, res.state.last_token, stop, res.new_tokens, out_buf,
                     cursor, nacc_buf, nn_buf, row_idx, done)
 
         return step
+
+    def _stop_and_advance(self, state: SpecDecodeState, res, cursor, max_new,
+                          done, eos_id, split: bool):
+        """The tail of a linear round's target half, shared by the colocated
+        step and the split workers' verify (``distributed/workers.py``):
+        clamp the verified window to each slot's lifecycle
+        (:func:`slot_stop_mask`) and, when ``split``, re-advance the
+        target's window-start state over ``[last_token,
+        committed[:num_new − 1]]`` with :func:`_scan_cache_advance`.
+        Returns (stop, the advance tokens); the caller commits, so
+        ``state.pos`` and ``last_token`` are still the window start."""
+        stop = slot_stop_mask(res.num_new, res.n_accepted, res.new_tokens,
+                              cursor, max_new, done, eos_id)
+        adv = None
+        if split:
+            # committed[t] enters the state when the next window runs it,
+            # so the advance feeds last_token then the first num_new − 1
+            # committed tokens; masked steps (t ≥ num_new) read any valid
+            # id in place of the −1 pad
+            adv = torch.cat([state.last_token[:, None],
+                             res.new_tokens[:, :-1].clamp_min(0)], dim=1)
+            _scan_cache_advance(self.target.decode_step, self.target_params,
+                                state.target_cache, adv, state.pos,
+                                stop.num_new)
+        return stop, adv
+
+    def _tree_spec(self, d_max: int, b_max: int) -> TreeSpec:
+        """The (d_max, b_max) grid's tables on this engine's device."""
+        key = ("tree", d_max, b_max)
+        if key not in self._tree_specs:
+            self._tree_specs[key] = TreeSpec(d_max, b_max, self.device)
+        return self._tree_specs[key]
+
+    def _check_tree(self) -> None:
+        if self.temperature > 0.0:
+            raise NotImplementedError(
+                "tree speculation is greedy-only (temperature 0)")
+        if not all(c.has_attention_cache
+                   for c in (self.draft_cfg, self.target_cfg)):
+            raise NotImplementedError(
+                "tree speculation needs attention-family draft and target")
 
     def _tree_step(self, d_max: int, b_max: int):
         """The tree-speculation step at the (d_max, b_max) grid bound
@@ -315,19 +360,9 @@ class SpecDecodeEngine:
         tensors), and the winning path is relocated onto the linear slots
         of both caches.
         Greedy only, attention families only."""
-        if self.temperature > 0.0:
-            raise NotImplementedError(
-                "tree speculation is greedy-only (temperature 0)")
-        if not all(c.has_attention_cache
-                   for c in (self.draft_cfg, self.target_cfg)):
-            raise NotImplementedError(
-                "tree speculation needs attention-family draft and target")
-        key = ("tree", d_max, b_max)
-        self.step_keys.add(key)
-        if key not in self._tree_specs:
-            self._tree_specs[key] = TreeSpec(d_max, b_max, self.device)
-        spec = self._tree_specs[key]
-        T = spec.n_entries
+        self._check_tree()
+        self.step_keys.add(("tree", d_max, b_max))
+        spec = self._tree_spec(d_max, b_max)
 
         def step(state: SpecDecodeState, active_gamma, branches, row_idx,
                  out_buf, cursor, nacc_buf, nn_buf, max_new, done, eos_id,
@@ -337,32 +372,47 @@ class SpecDecodeEngine:
             tree_tokens, dcache = tree_propose(
                 self.draft, self.draft_params, state.draft_cache,
                 state.last_token, state.pos, spec)
-            p_logits, tcache = self.target.verify_step(
-                self.target_params, tree_tokens, state.target_cache,
-                state.pos, slot_off=spec.slot_off, pos_off=spec.tree_pos,
-                win_mask=spec.win_mask)
-            node_valid = spec.node_valid(active_gamma, branches)
-            n_acc, winner, bonus = tree_verify_fused(
-                tree_tokens, p_logits, spec.parent_entry, spec.tree_pos,
-                node_valid, spec.win_mask, spec.win_words, counters)
-            res = TreeVerifyResult(
-                n_accepted=n_acc, next_token=bonus, winner=winner,
-                path=tree_path_from_winner(winner, spec.parent_entry,
-                                           spec.tree_pos, d_max),
-                accept=None)
-            new_tokens, num_new = tree_committed(tree_tokens, res, d_max)
-            stop = slot_stop_mask(num_new, n_acc, new_tokens, cursor,
-                                  max_new, done, eos_id)
-            # relocate the winning path in BOTH caches (tree slots are not
-            # positions); lifecycle-clamped counts scrub what the budget
-            # or EOS cut
-            for cache in (tcache, dcache):
-                tree_commit_cache(cache, state.pos, res.path,
-                                  stop.n_accepted, T)
-            _commit(state, bonus, stop, new_tokens, out_buf, cursor,
+            res, new_tokens, stop = self._tree_verdict(
+                spec, state, tree_tokens, active_gamma, branches, cursor,
+                max_new, done, eos_id, counters)
+            # the draft's grid moves like the target's (tree slots are not
+            # positions)
+            tree_commit_cache(dcache, state.pos, res.path, stop.n_accepted,
+                              spec.n_entries)
+            _commit(state, res.next_token, stop, new_tokens, out_buf, cursor,
                     nacc_buf, nn_buf, row_idx, done)
 
         return step
+
+    def _tree_verdict(self, spec: TreeSpec, state: SpecDecodeState,
+                      tree_tokens, active_gamma, branches, cursor, max_new,
+                      done, eos_id, counters):
+        """The target half of a tree round, shared by the colocated tree step
+        and the split workers' tree verify: one ancestor-masked verify pass
+        over the (B, T) grid (entry 0 the anchor), the verdict by kernels
+        B4a/B4b in one launch, the committed tokens, the lifecycle clamp,
+        and the winning path relocated onto the target cache's linear slots
+        (lifecycle-clamped counts scrub what the budget or EOS cut).
+        Returns (result, committed tokens, stop); the caller commits."""
+        p_logits, tcache = self.target.verify_step(
+            self.target_params, tree_tokens, state.target_cache,
+            state.pos, slot_off=spec.slot_off, pos_off=spec.tree_pos,
+            win_mask=spec.win_mask)
+        node_valid = spec.node_valid(active_gamma, branches)
+        n_acc, winner, bonus = tree_verify_fused(
+            tree_tokens, p_logits, spec.parent_entry, spec.tree_pos,
+            node_valid, spec.win_mask, spec.win_words, counters)
+        res = TreeVerifyResult(
+            n_accepted=n_acc, next_token=bonus, winner=winner,
+            path=tree_path_from_winner(winner, spec.parent_entry,
+                                       spec.tree_pos, spec.d_max),
+            accept=None)
+        new_tokens, num_new = tree_committed(tree_tokens, res, spec.d_max)
+        stop = slot_stop_mask(num_new, n_acc, new_tokens, cursor, max_new,
+                              done, eos_id)
+        tree_commit_cache(tcache, state.pos, res.path, stop.n_accepted,
+                          spec.n_entries)
+        return res, new_tokens, stop
 
     def _insert_rows(self, state: SpecDecodeState, one: SpecDecodeState,
                      out_buf, cursor, max_new_buf, done, slot: torch.Tensor,
@@ -488,12 +538,10 @@ class SpecDecodeEngine:
         """Batched one-wave generation over a :class:`DecodeSession`.
         Returns (tokens (B, max_new), stats). ``seed`` seeds the session's
         generator (the sampled path's draws; the reference's ``key``).
-        ``transport`` (the distributed split) comes with ROADMAP item A9."""
+        ``transport`` (a :class:`repro_torch.distributed.Transport`) runs
+        the rounds as draft→verify→verdict exchanges between the split
+        workers; ``mode_policy`` is the session's."""
         from .session import DecodeSession    # session imports engine types
-        if transport is not None:
-            raise NotImplementedError(
-                "transports (the distributed draft/target split) come with "
-                "ROADMAP item A9")
         policy = window_policy or StaticWindowPolicy(4)
         if gamma_max:
             gmax = int(gamma_max)
@@ -506,7 +554,8 @@ class SpecDecodeEngine:
         t0 = time.perf_counter()
         sess = DecodeSession(self, capacity=B, max_new_cap=max_new_tokens,
                              gamma_max=gmax, sync_every=sync, eos_id=eos_id,
-                             mode_policy=mode_policy, seed=seed)
+                             mode_policy=mode_policy, seed=seed,
+                             transport=transport)
         sess.admit_batch(prompts, max_new_tokens, prompt_lens=prompt_lens)
         max_iters = max_new_tokens + sync
         while sess.unfinished and sess.iterations < max_iters:

@@ -42,9 +42,28 @@ fixes the committed tokens and no draw syncs the host.
 The rounds run the engine's linear step for the pair (``_step_fn``: fused
 for two attention models, split when a side is ssm or hybrid). With
 ``max_branches > 0`` they are tree-speculation rounds (the engine's
-``_tree_step``; dense KV, greedy, colocated, attention families). The
-transport and pipelined rounds of the reference come with ROADMAP item
-A9.
+``_tree_step``; dense KV, greedy, attention families).
+
+With a ``transport`` the rounds are HALF-DUPLEX draft→verify→verdict
+exchanges between the engine's split workers (``distributed/workers.py``;
+the reference's ``_run_chunk_transport``): the draft proposes, its window
+crosses the transport as a :class:`~repro_torch.distributed.wire.WindowMsg`,
+the target verifies THE WINDOW IT RECEIVED and commits, its
+:class:`~repro_torch.distributed.wire.VerdictMsg` crosses back, and the
+draft applies THE VERDICT IT RECEIVED (a recurrent draft re-advances by its
+``num_new``, a tree draft relocates its grid by its ``path`` and
+``n_accepted``). Over a socket the decoded bytes are what runs, so a codec
+fault shows as a wrong token. A fused round (γ 0) runs the same verify
+program with no window and the draft ingests the committed token; its
+tokens stream edge-ward one control round trip per ``FUSED_FLUSH_TOKENS``.
+Each worker program is a captured step of the session like the colocated
+ones; a round's host crossings are exactly: the proposals (tree: the grid)
+to the host, the received window to the device, the verdict (n_accepted,
+num_new, next_token, last_token, done; path for trees) to the host in one
+copy, and, for a recurrent or tree draft, the received verdict's fields
+back to the device, all through pinned buffers; the device segments
+between them run under ``no_host_sync``. The pipelined mode
+(``mode_policy="pipeline"``) is the next slice of ROADMAP item A9.
 """
 
 from __future__ import annotations
@@ -57,10 +76,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..distributed.transport import Transport
+from ..distributed.wire import TransportProtocolError, WindowMsg
 from ..models.kvcache import BlockAllocator, logical_blocks, reset_slot
 # fused-mode tokens stream edge-ward one control round trip per this many
-# committed tokens (the reference's sim/network.DEFAULT_FUSED_CHUNK)
-from .awc.model import DEFAULT_FUSED_CHUNK as FUSED_FLUSH_TOKENS
+# committed tokens — the same amortization the link model charges
+from ..sim.network import DEFAULT_FUSED_CHUNK as FUSED_FLUSH_TOKENS
 from .capture import CapturedStep
 from .engine import DEFAULT_GAMMA_MAX, GenerationStats
 from .specdec import SpecDecodeState
@@ -78,6 +99,37 @@ class SlotRecord:
     proposed: int = 0
     accepted: int = 0
     done: bool = False
+
+
+class HostImage:
+    """A host copy of one device buffer for a transport round's host
+    crossings, pinned on the card so both directions queue on the stream
+    without a sync: :meth:`fetch` queues the device-to-host copy,
+    :meth:`wait` waits for it and returns the numpy view, :meth:`put`
+    fills the image and queues the host-to-device copy. A round waits on
+    each fetch before the host touches the image again, so a queued copy
+    never reads a half-written image."""
+
+    def __init__(self, dev: torch.Tensor):
+        self.dev = dev
+        cuda = dev.device.type == "cuda"
+        self.host = torch.zeros(dev.shape, dtype=dev.dtype, pin_memory=cuda)
+        self.np = self.host.numpy()
+        self._event = torch.cuda.Event() if cuda else None
+
+    def fetch(self) -> None:
+        self.host.copy_(self.dev, non_blocking=True)
+        if self._event is not None:
+            self._event.record()
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self.np
+
+    def put(self, values) -> None:
+        self.np[...] = values
+        self.dev.copy_(self.host, non_blocking=True)
 
 
 @contextlib.contextmanager
@@ -107,7 +159,14 @@ class DecodeSession:
                        granularity,
     ``eos_id``         stop token (−1 disables; per-slot budgets always cap),
     ``mode_policy``    ``"auto"`` honors ``WindowDecision.mode``,
-                       ``"distributed"``/``"fused"`` force one mode,
+                       ``"distributed"``/``"fused"`` force one mode
+                       (``"pipeline"``: the next slice of ROADMAP A9),
+    ``transport``      a :class:`repro_torch.distributed.Transport`: the
+                       rounds run as draft→verify→verdict exchanges between
+                       the engine's split workers over it (colocated steps
+                       otherwise); sampled rounds need a pass-through
+                       transport (in-process or emulated link: the draft
+                       distributions stay on the device),
     ``paged``          KV in a paged block pool: admission reserves only the
                        blocks a request's ``prompt + budget + 2γ`` footprint
                        needs and retirement frees them; greedy tokens equal
@@ -163,10 +222,16 @@ class DecodeSession:
                     "path relocation is pos_map surgery on dense rows)")
         self._branches_eff = 1
         self._branches_prev = 1.0
-        if transport is not None or mode_policy == "pipeline":
+        if mode_policy == "pipeline":
             raise NotImplementedError(
-                "transports and pipelined rounds (the distributed draft/"
-                "target split) come with ROADMAP item A9")
+                "the pipelined mode (window k+1 drafted while window k is "
+                "verified) is the next slice of ROADMAP item A9; the "
+                "half-duplex transport rounds run with mode_policy auto, "
+                "distributed or fused")
+        if transport is not None and not isinstance(transport, Transport):
+            raise TypeError(f"transport must be a repro_torch.distributed."
+                            f"Transport, got {type(transport).__name__}")
+        self.transport = transport
         self.engine = engine
         self.device = engine.device
         on_card = self.device.type == "cuda"
@@ -237,6 +302,13 @@ class DecodeSession:
         self.gamma_sum = 0
         self.gamma_rounds = 0
         self.fused_iterations = 0
+        self.link_ms = 0.0               # unhidden transport delay so far
+        self.pipeline_hits = 0           # the pipelined mode's counters (0
+        self.pipeline_misses = 0         # until that mode is ported)
+        self.control_roundtrips = 0      # fused-mode stream flushes
+        self._fused_pending = 0          # fused tokens since the last flush
+        self._round_seq = 0              # wire round ids (RTT pairing)
+        self._wire = None                # transport rounds' buffers, steps
         self._alpha_recent: list[float] = []
         self._tpot_recent: list[float] = []
         self._gamma_prev = 4.0
@@ -552,7 +624,10 @@ class DecodeSession:
         sync between them, then sync the host once: cursors/done flags come
         off the device, acceptance bits are attributed to the request in
         each slot and the window-policy features update. Returns the number
-        of rounds run."""
+        of rounds run. With a transport the rounds are half-duplex
+        exchanges (:meth:`_run_chunk_transport`)."""
+        if self.transport is not None:
+            return self._run_chunk_transport(policy, max_iters, q_depth)
         n = self.sync_every
         if max_iters is not None:
             n = min(n, max_iters - self.iterations)
@@ -568,11 +643,7 @@ class DecodeSession:
                       "row": self._row_tab[r]}
             if self.max_branches:
                 inputs["branches"] = self._branch_tab[self._branches_eff]
-            # capture synchronizes the device on entry: that call alone
-            # runs outside the guard
-            with (contextlib.nullcontext() if step.captures_next
-                  else no_host_sync(self.device)):
-                step(**inputs)
+            self._segment(step, **inputs)
             self.iterations += 1
         self._sync_and_attribute(n, chunk_gammas, chunk_t0,
                                  colocated_rtt_ms=self.engine.rtt_ms)
@@ -602,15 +673,300 @@ class DecodeSession:
             self._round = self._captured(body, ins)
         return self._round
 
+    def _segment(self, step: CapturedStep, *, before=(), after=(),
+                 **inputs) -> None:
+        """One device segment: the host-to-device copies ``before``, the
+        step, the device-to-host copies ``after``, all queued under
+        ``no_host_sync``. A capture synchronizes the device on entry: the
+        one call per step that captures runs outside the guard."""
+        with (contextlib.nullcontext() if step.captures_next
+              else no_host_sync(self.device)):
+            for f in before:
+                f()
+            step(**inputs)
+            for f in after:
+                f()
+
+    # ------------------------------------------------- transport rounds
+
+    def _wire_init(self) -> None:
+        """The split rounds' buffers (built at the first transport chunk):
+        the draft's linear window (and tree window), the target's received
+        window inputs, the verdict buffers, and a pinned host image of each
+        buffer a round copies across."""
+        if self._wire is not None:
+            return
+        from ..distributed.workers import DraftWindow, VerdictBuffer
+        eng, B, G, dev = self.engine, self.capacity, self.gamma_max, \
+            self.device
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                           device=dev)
+        w = {"linear": DraftWindow.empty(
+                 B, G, dev, vocab=eng.draft_cfg.vocab,
+                 sampled=eng.temperature > 0.0),
+             "verdict": VerdictBuffer(B, 0, dev),
+             "tokens_in": zeros(B, G)}
+        if self.max_branches:
+            T = eng._tree_spec(G, self.max_branches).n_entries
+            w.update(tree=DraftWindow.empty(B, T, dev, d_max=G),
+                     tree_verdict=VerdictBuffer(B, G, dev),
+                     grid_in=zeros(B, T))
+        host = {"proposals": w["linear"].tokens,
+                "received": w["linear"].received,
+                "tokens_in": w["tokens_in"], "verdict": w["verdict"].flat}
+        if self.max_branches:
+            host.update(grid=w["tree"].tokens,
+                        tree_received=w["tree"].received,
+                        grid_in=w["grid_in"],
+                        tree_verdict=w["tree_verdict"].flat)
+        w["host"] = {k: HostImage(v) for k, v in host.items()}
+        w["steps"] = {}
+        self._wire = w
+
+    def _worker_step(self, name: str) -> CapturedStep:
+        """The session's captured step of one worker program (built at its
+        first call), bound to the session's state and buffers: ``propose``,
+        ``verify``, ``advance``, ``ingest``, ``propose_tree``,
+        ``verify_tree``, ``ingest_tree``."""
+        steps = self._wire["steps"]
+        if name in steps:
+            return steps[name]
+        # the bodies close over tensors and buffer objects, never over the
+        # session or the wire dict that holds the steps (no reference cycle)
+        eng, st, w, G = self.engine, self._state, self._wire, self.gamma_max
+        dw, tw = eng.split_workers()
+        gen = self._gen
+        bufs = (self._out_buf, self._cursor, self._nacc, self._nn,
+                self._max_new, self._done, self._eos)
+        ins: dict = {}
+        lin, verdict, tokens_in = w["linear"], w["verdict"], w["tokens_in"]
+        if name == "propose":
+            fn = dw.propose(G)
+            body = lambda: fn(st.draft_cache, st.last_token, st.pos, lin,
+                              generator=gen)
+        elif name == "verify":
+            fn = tw.verify_commit(G)
+            ins = {"gamma": self._gamma_in, "row": self._row_in}
+            body = lambda: fn(st, tokens_in, lin.q_probs, ins["gamma"],
+                              ins["row"], *bufs, verdict, generator=gen)
+        elif name == "advance":
+            fn = dw.advance(G)
+            body = lambda: fn(st.draft_cache, lin)
+        elif name == "ingest":
+            fn = dw.ingest()
+            body = lambda: fn(st.draft_cache, verdict.anchor, verdict.pos,
+                              verdict.num_new)
+        elif name == "propose_tree":
+            fn, win = dw.propose_tree(G, self.max_branches), w["tree"]
+            body = lambda: fn(st.draft_cache, st.last_token, st.pos, win)
+        elif name == "verify_tree":
+            fn = tw.verify_commit_tree(G, self.max_branches)
+            ins = {"gamma": self._gamma_in, "branches": self._branch_in,
+                   "row": self._row_in}
+            grid_in, tverdict = w["grid_in"], w["tree_verdict"]
+            counters = self._tree_counters
+            body = lambda: fn(st, grid_in, ins["gamma"], ins["branches"],
+                              ins["row"], *bufs, tverdict, counters=counters)
+        elif name == "ingest_tree":
+            fn, win = dw.ingest_tree(G, self.max_branches), w["tree"]
+            body = lambda: fn(st.draft_cache, win)
+        else:
+            raise KeyError(name)
+        steps[name] = self._captured(body, ins)
+        return steps[name]
+
+    def _exchange(self, msg: WindowMsg):
+        """Post ``msg``, receive the window on the target side; returns
+        (received window, unhidden link ms)."""
+        tr = self.transport
+        tr.post_window(msg)
+        got, waited = tr.recv_window()
+        if (got.round_id != msg.round_id
+                or np.shape(got.tokens) != msg.tokens.shape):
+            raise TransportProtocolError(
+                f"received window {got.round_id} of shape "
+                f"{np.shape(got.tokens)}, sent {msg.round_id} of shape "
+                f"{msg.tokens.shape}")
+        if msg.q_probs is not None and got.q_probs is not msg.q_probs:
+            # the target's verify reads the draft's distributions where
+            # they lie; a transport must hand that tensor through
+            raise TransportProtocolError(
+                "the window's q_probs did not pass through the transport")
+        return got, waited
+
+    def _return(self, verdict):
+        """Post the target's verdict, receive it on the draft side; returns
+        (received verdict, unhidden link ms)."""
+        tr = self.transport
+        tr.post_verdict(verdict)
+        got, waited = tr.recv_verdict()
+        if got.round_id != verdict.round_id:
+            raise TransportProtocolError(
+                f"received verdict {got.round_id}, sent {verdict.round_id}")
+        return got, waited
+
+    def _linear_round(self, r: int, gamma: int, n_active: int):
+        """One distributed linear round; returns (received verdict, link ms,
+        draft ms)."""
+        from ..distributed.workers import DraftWindow
+        w, h = self._wire, self._wire["host"]
+        lin = w["linear"]
+        t0 = time.perf_counter()
+        self._segment(self._worker_step("propose"),
+                      after=[h["proposals"].fetch])
+        tokens = h["proposals"].wait().copy()
+        draft_ms = (time.perf_counter() - t0) * 1e3
+        rid = self._round_seq
+        self._round_seq += 1
+        msg = WindowMsg(tokens=tokens, gamma=gamma, n_active=n_active,
+                        q_probs=lin.q_probs, round_id=rid)
+        got, link_ms = self._exchange(msg)
+        self._segment(self._worker_step("verify"),
+                      before=[lambda: h["tokens_in"].put(got.tokens)],
+                      after=[h["verdict"].fetch],
+                      gamma=self._gamma_tab[gamma], row=self._row_tab[r])
+        verdict = w["verdict"].message(h["verdict"].wait(), gamma, n_active,
+                                       rid)
+        got_v, waited = self._return(verdict)
+        if not self.engine._draft_attention:
+            img = h["received"]
+            DraftWindow.pack_received(got_v, img.np)
+            self._segment(self._worker_step("advance"),
+                          before=[lambda: img.put(img.np)])
+        return got_v, link_ms + waited, draft_ms
+
+    def _tree_round(self, r: int, gamma: int, n_active: int):
+        """One distributed tree round: the grid crosses with its parent
+        table, the verdict carries the winning path back; returns (received
+        verdict, link ms, draft ms)."""
+        from ..distributed.workers import DraftWindow
+        w, h = self._wire, self._wire["host"]
+        b = self._branches_eff
+        t0 = time.perf_counter()
+        self._segment(self._worker_step("propose_tree"),
+                      after=[h["grid"].fetch])
+        grid = h["grid"].wait().copy()
+        draft_ms = (time.perf_counter() - t0) * 1e3
+        rid = self._round_seq
+        self._round_seq += 1
+        spec = self.engine._tree_spec(self.gamma_max, self.max_branches)
+        msg = WindowMsg(tokens=grid, gamma=gamma, n_active=n_active,
+                        round_id=rid, n_nodes=grid.shape[1], branches=b,
+                        parent=spec.parent_np)
+        got, link_ms = self._exchange(msg)
+        self._segment(self._worker_step("verify_tree"),
+                      before=[lambda: h["grid_in"].put(got.tokens)],
+                      after=[h["tree_verdict"].fetch],
+                      gamma=self._gamma_tab[gamma],
+                      branches=self._branch_tab[b], row=self._row_tab[r])
+        verdict = w["tree_verdict"].message(h["tree_verdict"].wait(), gamma,
+                                            n_active, rid)
+        got_v, waited = self._return(verdict)
+        img = h["tree_received"]
+        DraftWindow.pack_received(got_v, img.np)
+        self._segment(self._worker_step("ingest_tree"),
+                      before=[lambda: img.put(img.np)])
+        return got_v, link_ms + waited, draft_ms
+
+    def _fused_round(self, r: int) -> tuple[np.ndarray, float]:
+        """One fused (cloud-only) round: the verify program at γ 0 commits
+        the target's own next token (its window input zeroed, never read),
+        the draft ingests the round's anchor so its cache stays coherent for
+        a later distributed round, and tokens stream edge-ward one control
+        round trip per ``FUSED_FLUSH_TOKENS`` committed tokens. Returns (the
+        done flags, the unhidden link ms of the flushes)."""
+        w, h = self._wire, self._wire["host"]
+        self._segment(self._worker_step("verify"),
+                      before=[w["tokens_in"].zero_],
+                      gamma=self._gamma_tab[0], row=self._row_tab[r])
+        self._segment(self._worker_step("ingest"),
+                      after=[h["verdict"].fetch])
+        rows = h["verdict"].wait()[:5 * self.capacity].reshape(5, -1)
+        self._fused_pending += int(rows[1].sum())
+        link_ms = 0.0
+        while self._fused_pending >= FUSED_FLUSH_TOKENS:
+            link_ms += self._flush()
+            self._fused_pending -= FUSED_FLUSH_TOKENS
+        return rows[4].astype(bool), link_ms
+
+    def _flush(self) -> float:
+        """One fused-mode control round trip; returns its unhidden ms."""
+        self.control_roundtrips += 1
+        return self.transport.control_roundtrip()
+
+    def _run_chunk_transport(self, policy, max_iters: Optional[int],
+                             q_depth: float) -> int:
+        """Up to ``sync_every`` HALF-DUPLEX rounds over the transport (the
+        reference's ``_run_chunk_transport``). A distributed round pays the
+        link's delay both ways, a fused round skips the draft and both hops
+        (:meth:`_fused_round`). The host syncs of a round are inherent —
+        tokens must exist as bytes to cross a wire — so this path pays a
+        full round trip of dead time per window; hiding it is the pipelined
+        mode's job."""
+        n = self.sync_every
+        if max_iters is not None:
+            n = min(n, max_iters - self.iterations)
+        if n <= 0 or not self.occupied:
+            return 0
+        self._wire_init()
+        B, tr = self.capacity, self.transport
+        chunk_t0 = time.perf_counter()
+        chunk_gammas: list[int] = []
+        link_ms = draft_ms = 0.0
+        # free slots and finished rows are inert: the host's records are
+        # the device's done flags as of the last sync or admission
+        done_host = np.array([rec is None or rec.done for rec in self._slots])
+        it_run = 0
+        for r in range(n):
+            if done_host.all():
+                break
+            gamma, fused = self._decide(policy, q_depth)
+            n_active = int(B - done_host.sum())
+            if fused:
+                done_host, ms = self._fused_round(r)
+            else:
+                round_fn = (self._tree_round if self.max_branches
+                            else self._linear_round)
+                verdict, ms, d_ms = round_fn(r, gamma, n_active)
+                done_host = verdict.done
+                draft_ms += d_ms
+            link_ms += ms
+            chunk_gammas.append(gamma)
+            self.iterations += 1
+            it_run += 1
+        if it_run == 0:
+            return 0
+        if self._fused_pending and done_host.all():
+            # the batch drained: flush the sub-chunk tail of fused tokens
+            # (a session abandoned mid-stream drains it in snapshot())
+            link_ms += self._flush()
+            self._fused_pending = 0
+        self.link_ms += link_ms
+        # the TPOT feature tracks TARGET service time: the draft's proposal
+        # time and the link delay come out (the delay only where the
+        # transport slept it into wall time; a virtual clock gets it
+        # instead)
+        self._sync_and_attribute(
+            it_run, chunk_gammas, chunk_t0,
+            non_target_ms=draft_ms + (link_ms if tr.wall_clock else 0.0),
+            virtual_extra_ms=0.0 if tr.wall_clock else link_ms)
+        return it_run
+
     def _sync_and_attribute(self, n: int, chunk_gammas: list[int],
-                            chunk_t0: float,
+                            chunk_t0: float, non_target_ms: float = 0.0,
+                            virtual_extra_ms: float = 0.0,
                             colocated_rtt_ms: float = 0.0) -> None:
         """Chunk epilogue: one host transfer of cursors/flags/stat rows,
         per-request acceptance attribution, window-policy feature update.
         ``chunk_gammas`` holds the EFFECTIVE per-round γ (0 for fused
         rounds, whose commits enter token counts but not acceptance stats).
-        The colocated path is billed one virtual RTT per distributed round
-        plus the per-token amortized stream flush for fused commits."""
+        ``non_target_ms`` (slept link delay + measured draft proposal time)
+        is kept out of the TPOT feature, which tracks target service time;
+        the link shows in ``rtt_recent_ms`` instead. Virtual clock: the
+        transport path passes its imposed-but-not-slept delay as
+        ``virtual_extra_ms``; the colocated path is billed one
+        ``colocated_rtt_ms`` per distributed round plus the per-token
+        amortized stream flush for fused commits."""
         cur = self._cursor.cpu().numpy()
         done = self._done.cpu().numpy()
         nacc = self._nacc[:n].cpu().numpy()
@@ -650,15 +1006,14 @@ class DecodeSession:
 
         active_iters = int((nn > 0).sum())
         mean_tok = chunk_tokens / max(1, active_iters)
-        compute_ms = max(0.0, chunk_wall * 1e3)
+        compute_ms = max(0.0, chunk_wall * 1e3 - non_target_ms)
         self._tpot_recent.append((compute_ms / n) / max(1.0, mean_tok))
         del self._alpha_recent[:-16], self._tpot_recent[:-16]
-        virtual_extra_ms = 0.0
         if colocated_rtt_ms > 0.0:
             n_dist = sum(1 for g in chunk_gammas if g > 0)
             fused_tokens = int(sum(nn[r].sum() for r in range(n)
                                    if chunk_gammas[r] == 0))
-            virtual_extra_ms = colocated_rtt_ms * (
+            virtual_extra_ms += colocated_rtt_ms * (
                 n_dist + fused_tokens / FUSED_FLUSH_TOKENS)
         self.virtual_ms += virtual_extra_ms + chunk_wall * 1e3
         self.decode_wall_s += chunk_wall
@@ -666,10 +1021,12 @@ class DecodeSession:
     def _features(self, q_depth: float) -> FeatureSnapshot:
         a = self._alpha_recent[-16:]
         t = self._tpot_recent[-16:]
+        rtt = (self.transport.recent_rtt_ms if self.transport is not None
+               else self.engine.rtt_ms)
         return FeatureSnapshot(
             q_depth=q_depth,
             alpha_recent=(sum(a) / len(a)) if a else 0.7,
-            rtt_recent_ms=self.engine.rtt_ms,
+            rtt_recent_ms=rtt,
             tpot_recent_ms=(sum(t) / len(t)) if t else 50.0,
             gamma_prev=self._gamma_prev,
             pipe_hit_recent=0.0, branches_prev=self._branches_prev)
@@ -704,7 +1061,13 @@ class DecodeSession:
 
     def snapshot(self) -> tuple[np.ndarray, GenerationStats]:
         """Wave-style extraction: the full output buffer plus engine-schema
-        stats over currently-occupied slots (the ``generate()`` epilogue)."""
+        stats over currently-occupied slots (the ``generate()`` epilogue).
+        Drains any sub-chunk tail of fused-mode tokens still pending stream
+        delivery, so sessions that stop on the iteration bound pay the
+        final control round trip too."""
+        if self.transport is not None and self._fused_pending:
+            self.link_ms += self._flush()
+            self._fused_pending = 0
         tokens = (self._out_buf[:, :self.max_new_cap].cpu().numpy()
                   .astype(np.int64) if self._out_buf is not None
                   else np.empty((self.capacity, 0), np.int64))
@@ -717,5 +1080,7 @@ class DecodeSession:
             tokens=int(produced.sum()) - n_occ,
             prefill_s=self.prefill_s, virtual_ms=self.virtual_ms,
             acceptance_seqs=[r.bits for r in self._slots if r is not None],
-            gamma_seq=list(self.gamma_seq), produced=produced)
+            gamma_seq=list(self.gamma_seq), produced=produced,
+            pipeline_hits=self.pipeline_hits,
+            pipeline_misses=self.pipeline_misses)
         return tokens, stats

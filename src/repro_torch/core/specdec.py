@@ -249,14 +249,55 @@ class SpecDecodeOut(NamedTuple):
     n_accepted: torch.Tensor   # (B,)
 
 
+def verify_proposal(target_verify_fn: Callable, target_params,
+                    state: SpecDecodeState, draft_tokens: torch.Tensor,
+                    q_probs: Optional[torch.Tensor], active_gamma: torch.Tensor,
+                    temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    draft_cache=None) -> SpecDecodeOut:
+    """The target half of a speculation iteration: verify the window
+    ``[last_token, draft_tokens]`` (``draft_tokens`` (B, γ) int32) in one
+    target pass, greedy at temperature 0 and the sampled rule (kernels B3,
+    u and r from ``generator``, ``q_probs`` the draft's distributions)
+    above it, and build the committed tokens: the accepted prefix, then
+    the corrected/bonus token, −1 after. ``draft_cache`` is carried into
+    the returned state unchanged (the colocated step's proposal cache)."""
+    window = torch.cat([state.last_token[:, None], draft_tokens], dim=1)
+    p_logits, target_cache = target_verify_fn(
+        target_params, window, state.target_cache, state.pos)
+    if temperature <= 0.0:
+        res = verify_window_greedy(draft_tokens, p_logits, active_gamma)
+    else:
+        res = verify_window(generator, draft_tokens, q_probs,
+                            _temperature_probs(p_logits, temperature),
+                            active_gamma=active_gamma)
+
+    # committed tokens: accepted prefix then the corrected/bonus token
+    gamma = draft_tokens.shape[1]
+    ar = torch.arange(gamma + 1, device=window.device)[None, :]
+    acc_part = torch.cat([draft_tokens,
+                          torch.zeros_like(draft_tokens[:, :1])], dim=1)
+    corrected = torch.where(ar == res.n_accepted[:, None],
+                            res.next_token[:, None], acc_part)
+    new_tokens = torch.where(ar < res.num_new[:, None], corrected,
+                             torch.full_like(corrected, -1))
+    new_state = SpecDecodeState(draft_cache=draft_cache,
+                                target_cache=target_cache,
+                                last_token=res.next_token,
+                                pos=state.pos + res.num_new)
+    return SpecDecodeOut(state=new_state, new_tokens=new_tokens,
+                         num_new=res.num_new, n_accepted=res.n_accepted)
+
+
 def spec_decode_step(draft_decode_fn: Callable, target_verify_fn: Callable,
                      draft_params, target_params, state: SpecDecodeState,
                      gamma: int, active_gamma: torch.Tensor,
                      temperature: float = 0.0,
                      generator: Optional[torch.Generator] = None
                      ) -> SpecDecodeOut:
-    """One speculation iteration: greedy verify at temperature 0, the
-    sampled rule (kernels B3) above it with draws from ``generator``.
+    """One speculation iteration: the draft proposes (:func:`draft_propose`,
+    its Gumbel draws first), then :func:`verify_proposal` (the verify's
+    uniforms after them).
 
     ``target_verify_fn(params, tokens, cache, pos) -> (logits, cache)``
     runs the target over the γ+1 window ``[last_token, draft_tokens]``.
@@ -267,27 +308,6 @@ def spec_decode_step(draft_decode_fn: Callable, target_verify_fn: Callable,
     prop = draft_propose(draft_decode_fn, draft_params, state.draft_cache,
                          state.last_token, state.pos, gamma, temperature,
                          generator)
-    window = torch.cat([state.last_token[:, None], prop.tokens], dim=1)
-    p_logits, target_cache = target_verify_fn(
-        target_params, window, state.target_cache, state.pos)
-    if temperature <= 0.0:
-        res = verify_window_greedy(prop.tokens, p_logits, active_gamma)
-    else:
-        res = verify_window(generator, prop.tokens, prop.q_probs,
-                            _temperature_probs(p_logits, temperature),
-                            active_gamma=active_gamma)
-
-    # committed tokens: accepted prefix then the corrected/bonus token
-    ar = torch.arange(gamma + 1, device=window.device)[None, :]
-    acc_part = torch.cat([prop.tokens, torch.zeros_like(prop.tokens[:, :1])],
-                         dim=1)
-    corrected = torch.where(ar == res.n_accepted[:, None],
-                            res.next_token[:, None], acc_part)
-    new_tokens = torch.where(ar < res.num_new[:, None], corrected,
-                             torch.full_like(corrected, -1))
-    new_state = SpecDecodeState(draft_cache=prop.cache,
-                                target_cache=target_cache,
-                                last_token=res.next_token,
-                                pos=state.pos + res.num_new)
-    return SpecDecodeOut(state=new_state, new_tokens=new_tokens,
-                         num_new=res.num_new, n_accepted=res.n_accepted)
+    return verify_proposal(target_verify_fn, target_params, state,
+                           prop.tokens, prop.q_probs, active_gamma,
+                           temperature, generator, draft_cache=prop.cache)

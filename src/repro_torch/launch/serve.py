@@ -6,7 +6,8 @@ slot-based scheduler, one draft–target pair colocated on one device.
         --target qwen3-14b --draft qwen2.5-3b --policy awc \
         --requests 8 --max-new 32 [--arrival-rate 8] [--temperature 0.0] \
         [--paged-kv] [--full-size] [--device cuda|cpu] [--no-capture]
-        [--json]
+        [--link-rtt-ms 15 [--link-jitter-ms 1] [--link-bw-gbps 1]]
+        [--mode-policy auto|distributed|fused] [--json]
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --target zamba2-1.2b --draft mamba2-130m --full-size
@@ -32,7 +33,18 @@ Weights are random, drawn on the device from ``--seed``. ``--arrival-rate``
 draws Poisson arrivals (requests/s); TTFT and e2e include queue wait.
 ``--temperature`` > 0 samples (the sampled verify runs kernels B3 every
 round); the sessions seed their generators as the reference's do (0).
-Topologies, links and the wave server come with ROADMAP items A13 and A9.
+
+``--link-rtt-ms`` splits the pair at the wire: the rounds run as
+half-duplex draft→verify→verdict exchanges between the engine's split
+workers over a transport — 0 is the zero-delay in-process transport, more
+is an emulated edge–cloud link of that RTT, ``--link-jitter-ms`` jitter and
+``--link-bw-gbps`` bandwidth (wall-clock sleeps of the sampled delays; the
+summary's ``link_recent_rtt_ms`` is the measured RTT). On the card every
+worker program is captured once and replayed (``captured_graphs``: insert,
+propose, verify; + advance for an ssm draft; + ingest once a fused round
+ran). ``--mode-policy`` honors the window policy's fused/distributed
+decision (auto) or forces one mode; the pipelined mode comes with the next
+slice of ROADMAP A9. Topologies and the wave server come with A13.
 """
 
 from __future__ import annotations
@@ -47,7 +59,9 @@ import numpy as np
 from ..configs import ARCHS, get_config
 from ..core.engine import SpecDecodeEngine
 from ..core.window import make_window_policy
+from ..distributed import make_transport
 from ..serving import ServeRequest, ServerConfig, SpecDecodeServer
+from ..sim.network import LinkSpec
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -63,7 +77,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="Poisson arrivals per second (0 = all at t=0)")
     ap.add_argument("--rtt-ms", type=float, default=10.0,
-                    help="virtual RTT charged by the colocated path")
+                    help="virtual RTT charged by the colocated path "
+                         "(ignored when --link-rtt-ms selects a transport)")
+    ap.add_argument("--link-rtt-ms", type=float, default=None,
+                    help="run distributed over a transport: 0 = in-process "
+                         "(zero delay), >0 = emulated edge-cloud link with "
+                         "this RTT (measured wall-clock delays)")
+    ap.add_argument("--link-jitter-ms", type=float, default=1.0,
+                    help="emulated link jitter (with --link-rtt-ms > 0)")
+    ap.add_argument("--link-bw-gbps", type=float, default=1.0,
+                    help="emulated link bandwidth (with --link-rtt-ms > 0)")
+    ap.add_argument("--mode-policy", default="auto",
+                    choices=["auto", "distributed", "fused", "pipeline"],
+                    help="honor the window policy's fused/distributed "
+                         "decision (auto) or force one mode; 'pipeline' is "
+                         "refused (the next slice of ROADMAP A9)")
     ap.add_argument("--gamma-max", type=int, default=12,
                     help="window width of the step; any policy γ ≤ this "
                          "runs the same step")
@@ -97,6 +125,9 @@ class ServeRun:
 def run(argv=None) -> ServeRun:
     """Build the pair, serve the generated request stream, summarize."""
     args = parse_args(argv)
+    if args.mode_policy == "pipeline":
+        raise SystemExit("--mode-policy pipeline: the pipelined mode is the "
+                         "next slice of ROADMAP A9")
     raw = {}
     for role, name in (("draft", args.draft), ("target", args.target)):
         cfg = get_config(name)
@@ -110,10 +141,15 @@ def run(argv=None) -> ServeRun:
                               rtt_ms=args.rtt_ms, gamma_max=args.gamma_max,
                               sync_every=args.sync_every, device=args.device)
     policy = make_window_policy(args.policy, gamma=args.gamma)
+    transport = make_transport(
+        None if args.link_rtt_ms is None else LinkSpec(
+            rtt_ms=args.link_rtt_ms, jitter_ms=args.link_jitter_ms,
+            bandwidth_gbps=args.link_bw_gbps), seed=args.seed)
     server = SpecDecodeServer(engine, policy, ServerConfig(
         max_batch=args.max_batch, sync_every=args.sync_every,
         paged_kv=args.paged_kv, kv_pool_blocks=args.kv_pool_blocks,
-        capture=False if args.no_capture else None))
+        capture=False if args.no_capture else None, transport=transport,
+        mode_policy=args.mode_policy))
 
     rng = np.random.default_rng(args.seed)
     arrival = 0.0
@@ -157,6 +193,13 @@ def run(argv=None) -> ServeRun:
         "graph_warm_ups": engine.graphs.warm_ups,
         "pairs": pairs,
     }
+    if transport is not None:
+        # the reference launcher's flat link keys
+        summary.update(
+            transport=transport.describe(), mode_policy=args.mode_policy,
+            link_bytes_sent=transport.bytes_sent,
+            link_messages=transport.messages_sent,
+            link_recent_rtt_ms=round(transport.recent_rtt_ms, 3))
     return ServeRun(summary=summary, results=results, server=server,
                     requests=requests)
 
@@ -174,7 +217,11 @@ def main(argv=None) -> int:
               f"tpot={s['mean_tpot_ms']:.1f}ms  "
               f"e2e={s['mean_e2e_ms']:.0f}ms  "
               f"programs={s['step_programs']}  "
-              f"graphs={s['captured_graphs']}")
+              f"graphs={s['captured_graphs']}"
+              + (f"  link={s['transport']} rtt="
+                 f"{s['link_recent_rtt_ms']:.2f}ms "
+                 f"messages={s['link_messages']}" if "transport" in s
+                 else ""))
     return 0
 
 

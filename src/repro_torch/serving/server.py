@@ -15,8 +15,13 @@ Per-request metrics include queue wait: TTFT runs from the request's own
 ``arrival_s`` to the end of its own prefill-insert, e2e to its retirement;
 token payloads come from the per-sequence cursor.
 
+A pair with a ``transport`` (a :class:`repro_torch.distributed.Transport`)
+runs its rounds as half-duplex draft→verify→verdict exchanges over it;
+:meth:`SpecDecodeServer.pair_summaries` then reports its link (bytes,
+messages, measured RTT, unhidden link ms).
+
 SLO-aware admission, process-backed pairs, the smart router and the wave
-baseline come with ROADMAP item A13; transports with A9.
+baseline come with ROADMAP item A13.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ class ServingPair:
     pair_id: str
     engine: SpecDecodeEngine
     policy: WindowPolicy
+    transport: Optional[object] = None   # repro_torch.distributed.Transport
     mode_policy: str = "auto"            # auto | distributed | fused
     session: Optional[DecodeSession] = None  # live session, set by run()
     draining: bool = False               # drained pairs admit nothing new
@@ -77,6 +83,8 @@ class ServerConfig:
     max_new_cap: Optional[int] = None      # output width (default: queue max)
     eos_id: int = -1
     sync_every: Optional[int] = None       # admission/retirement granularity
+    transport: Optional[object] = None     # one-pair surface: the implicit
+                                           # pair's Transport
     mode_policy: str = "auto"              # one-pair surface: the implicit
                                            # pair's mode policy
     paged_kv: bool = False       # paged block-pool KV cache per pair
@@ -199,6 +207,7 @@ class SpecDecodeServer:
             pairs = [ServingPair(
                 pair_id="pair0", engine=engine,
                 policy=window_policy or StaticWindowPolicy(4),
+                transport=self.cfg.transport,
                 mode_policy=self.cfg.mode_policy)]
         else:
             assert engine is None and window_policy is None, \
@@ -267,6 +276,7 @@ class SpecDecodeServer:
                              sync_every=self.cfg.sync_every,
                              eos_id=self.cfg.eos_id, log_gamma=False,
                              mode_policy=pair.mode_policy,
+                             transport=pair.transport,
                              pair_key=pair.pair_id,
                              paged=self.cfg.paged_kv,
                              kv_block_size=self.cfg.kv_block_size,
@@ -363,8 +373,11 @@ class SpecDecodeServer:
     def pair_summaries(self) -> dict[str, dict]:
         """Per-pair operating point after :meth:`run`, keyed by pair id:
         request/iteration counts, mean effective γ, fused fraction,
-        acceptance, rolling p50/p95 TTFT/TPOT (NaN until a retirement
-        lands) and, for paged sessions, the free KV blocks."""
+        acceptance, the pipelined mode's hit counters (0 until it is
+        ported), the unhidden link ms, rolling p50/p95 TTFT/TPOT (NaN until
+        a retirement lands), for paged sessions the free KV blocks, and —
+        when the pair has a transport — its link stats (bytes, messages,
+        measured RTT)."""
         out: dict[str, dict] = {}
         for i, (pair, sess, served) in enumerate(zip(self.pairs,
                                                      self._sessions,
@@ -377,6 +390,9 @@ class SpecDecodeServer:
                     sess.fused_iterations / max(1, sess.iterations), 4),
                 "acceptance_rate": round(
                     sess.accepted / max(1, sess.proposed), 4),
+                "pipeline_hits": sess.pipeline_hits,
+                "pipeline_misses": sess.pipeline_misses,
+                "link_ms": round(sess.link_ms, 2),
                 "mode_policy": pair.mode_policy,
                 "ttft_p50_ms": round(self._ttft_q[i].p50(), 3),
                 "ttft_p95_ms": round(self._ttft_q[i].p95(), 3),
@@ -386,5 +402,12 @@ class SpecDecodeServer:
             fb = sess.free_kv_blocks()
             if fb is not None:
                 d["free_kv_blocks"] = fb
+            tr = pair.transport
+            if tr is not None:
+                d.update(
+                    transport=tr.describe(),
+                    bytes_sent=tr.bytes_sent,
+                    messages=tr.messages_sent,
+                    recent_rtt_ms=round(tr.recent_rtt_ms, 3))
             out[pair.pair_id] = d
         return out

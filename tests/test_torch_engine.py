@@ -477,5 +477,9 @@ def test_unported_features_name_their_roadmap_items(pair):
     assert make_window_policy("awc", max_branches=2).max_branches == 2
     sess = DecodeSession(teng, capacity=1, max_new_cap=4, max_branches=2)
     assert sess.max_branches == 2
+    # transports (A9's half-duplex rounds) are ported; the pipelined mode
+    # over them is not
+    from repro_torch.distributed import InProcessTransport
     with pytest.raises(NotImplementedError, match="A9"):
-        teng.generate(np.zeros((1, 4), np.int32), 4, transport=object())
+        teng.generate(np.zeros((1, 4), np.int32), 4,
+                      transport=InProcessTransport(), mode_policy="pipeline")
