@@ -112,7 +112,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               ``--temperature 1.0``): complete outputs, 2 step keys and 2
               captured graphs, B5 = rounds·38 + admissions·(38 + 24), B1 =
               rounds·6·(γ_max + 2) + admissions·6, B3 = rounds sampled and
-              0 greedy; a profile.
+              0 greedy; a profile;
+10. pipeline — the pipelined mode: float32, a qwen3-14b target at
+              QWEN_CUT depth whose draft is its noised copy (the first
+              noise of a ladder whose pipelined run has hits AND misses,
+              printed), 2-slot servers over the in-process transport, a
+              15 ms emulated link on the virtual clock and a TCP loopback
+              socket, dense and paged: pipelined == half-duplex == target
+              greedy, graphs per step as called (insert, propose,
+              speculative propose, verify); zamba2 ← mamba2 (every verdict
+              a miss: the recurrent checkpoint and rollback, 6 graphs);
+              T 1.0 pipelined captured == eager on one seed; then bf16
+              through ``repro_torch.launch.serve`` over a 15 ms link, each
+              pipelined run beside its half-duplex twin: qwen3-14b ←
+              qwen2.5-3b at the published depth (α 0: every speculative
+              window wasted) and qwen2.5-3b ← its noised copy at a low and
+              a high hit rate, with exact B1 launches (every window
+              proposed, discarded ones included) and graphs;
+11. topology — ``examples/cluster_2pair.json`` through ``launch.serve
+              --topology`` in bf16 at the published depth, 8 requests ×
+              32 tokens (both pairs, exact launches and graphs per pair)
+              and in f32 at QWEN_CUT (== target greedy); the wave server
+              (bf16, QWEN_CUT; both waves in one session, exact graphs)
+              twice, beside its continuous twin under the same policy,
+              in the order wave, continuous, continuous, wave; a
+              process-backed pair at the published depth (two worker hosts
+              on the card, each holding its own model); the
+              ``cluster_2pair_procs.json`` shape (four hosts) in f32 at
+              QWEN_CUT == the in-process deployment of the same spec; every
+              host's second wave under the capture guard, graphs and B1
+              launches per host exact.
 The decode rounds of every chunk run under
 ``torch.cuda.set_sync_debug_mode("error")`` (all but the one call per
 session step that captures it: capture synchronizes the device); a
@@ -138,7 +167,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "exact", "capture", "distributed",
-          "serve", "exact_ssm", "serve_ssm")
+          "serve", "exact_ssm", "serve_ssm", "pipeline", "topology")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
@@ -1502,10 +1531,10 @@ def _workload(np, vocab, n=8, seed=0, max_new=32):
     return reqs
 
 
-def _serve(engine, policy, reqs, **cfg_kw):
+def _serve(engine, policy, reqs, batch: int = 4, **cfg_kw):
     from repro_torch.serving import ServerConfig, SpecDecodeServer
     srv = SpecDecodeServer(engine, policy, ServerConfig(
-        max_batch=4, sync_every=8, **cfg_kw))
+        max_batch=batch, sync_every=8, **cfg_kw))
     for r in reqs:
         srv.submit(dataclasses.replace(r))
     res = {r.request_id: r for r in srv.run()}
@@ -1565,7 +1594,7 @@ class WinnerLog:
 
 def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
                  log=None, seed: int = 0, capture=None,
-                 transport=None) -> dict:
+                 transport=None, mode_policy: str = "auto") -> dict:
     """Decode ``reqs`` wave by wave (``batch`` at a time) through
     ``DecodeSession`` as ``benchmarks/bench_tree.py`` run_cell drives it:
     ``admit_batch`` the wave, ``run_chunk`` until every row stops,
@@ -1575,6 +1604,7 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
     the summed statistics."""
     from repro_torch.core.session import DecodeSession
     out = {"tokens": {}, "bits": {}, "rounds": 0, "fused": 0, "waves": 0,
+           "hits": 0, "misses": 0,
            "accepted": 0, "proposed": 0, "wall_s": 0.0,
            "decode_wall_s": 0.0, "tpot_ms": []}
     for w0 in range(0, len(reqs), batch):
@@ -1587,7 +1617,8 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
         sess = DecodeSession(eng, capacity=len(wave), max_new_cap=max_new,
                              gamma_max=GAMMA_MAX, sync_every=8,
                              max_branches=max_branches, seed=seed + w0,
-                             capture=capture, transport=transport)
+                             capture=capture, transport=transport,
+                             mode_policy=mode_policy)
         if log is not None:
             log.sess = sess
         t0 = time.perf_counter()
@@ -1602,6 +1633,8 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
             out["bits"][r.request_id] = st.acceptance_seqs[i]
         out["rounds"] += sess.iterations
         out["fused"] += sess.fused_iterations
+        out["hits"] += sess.pipeline_hits
+        out["misses"] += sess.pipeline_misses
         out["accepted"] += st.accepted
         out["proposed"] += st.proposed
         out["decode_wall_s"] += sess.decode_wall_s
@@ -2003,7 +2036,7 @@ def eager_against_captured(torch, kernels) -> None:
     for mode, extra in modes:
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with depth_cut(serve, QWEN_CUT):
+        with depth_cut(QWEN_CUT):
             out = serve.run(argv + extra)
         s = out.summary
         res[mode] = {k: s[k] for k in (
@@ -2017,7 +2050,7 @@ def eager_against_captured(torch, kernels) -> None:
         torch.cuda.empty_cache()
     for mode, extra in modes:
         t0 = time.perf_counter()
-        with depth_cut(serve, QWEN_CUT), profile(
+        with depth_cut(QWEN_CUT), profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
             out = serve.run(argv + extra)
             torch.cuda.synchronize()
@@ -2357,7 +2390,7 @@ def distributed_serve(torch, kernels) -> dict:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with depth_cut(serve, QWEN_CUT if cut else {}):
+        with depth_cut(QWEN_CUT if cut else {}):
             out = serve.run(argv)
         launches = dict(kernels.LAUNCHES)
         s = out.summary
@@ -2453,7 +2486,7 @@ def distributed_serve(torch, kernels) -> dict:
     short[short.index("--requests") + 1] = "4"
     short[short.index("--max-new") + 1] = "8"
     for name, extra in (("colocated", []), ("link0", link0)):
-        with depth_cut(serve, QWEN_CUT), profile(
+        with depth_cut(QWEN_CUT), profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
             out = serve.run(short + static + extra)
             torch.cuda.synchronize()
@@ -2536,7 +2569,7 @@ def phase_serve(torch, kernels):
             argv += ["--kv-pool-blocks", str(int(0.6 * parity))]
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        with depth_cut(serve, QWEN_CUT if cut else {}):
+        with depth_cut(QWEN_CUT if cut else {}):
             out = serve.run(argv)
         launches = dict(kernels.LAUNCHES)
         s = out.summary
@@ -2614,12 +2647,15 @@ def phase_serve(torch, kernels):
 
 
 class depth_cut:
-    """Within the block the launcher builds the named configs at the given
-    depths (``{name: n_layers}``) and every other setting as published."""
+    """Within the block a deployment (the launcher's, or one built with
+    ``repro_torch.topology.build_deployment``) builds the named configs at
+    the given depths (``{name: n_layers}``) and every other setting as
+    published."""
 
-    def __init__(self, serve_mod, layers: dict):
-        self.mod, self.layers = serve_mod, layers
-        self.real = serve_mod.get_config
+    def __init__(self, layers: dict):
+        import repro_torch.topology as topo
+        self.mod, self.layers = topo, layers
+        self.real = topo.get_config
 
     def __enter__(self):
         real, layers = self.real, self.layers
@@ -2971,6 +3007,649 @@ def phase_serve_ssm(torch, kernels) -> dict:
     return totals
 
 
+# ------------------------------------- pipelined mode and topology layer
+
+# draft noise ladder of the f32 pipelined checks: the first noise whose
+# pipelined run has both hits and misses is used (and printed); the served
+# noised pair runs at a high and a low hit rate
+PIPE_NOISES = (0.002, 0.005, 0.01, 0.02, 0.04)
+PIPE_SERVE_NOISES = (0.01, 0.001)
+PIPE_BATCH = 2                 # slots of the f32 pipelined servers
+PIPE_KERNELS = ("decode_attn", "paged_decode_attn", "ssd_scan",
+                "gather_reduce", "cdf_sample")
+TOPO_KERNELS = ("decode_attn",)
+
+
+def pipe_calls(sess, admissions: int, recurrent: bool) -> dict:
+    """Calls of each captured step of a pipelined server session: an
+    insert per admission; a propose per distributed round not verifying a
+    kept speculative window; a speculative propose per speculative window
+    posted; a verify per round; an ingest per fused round; for a recurrent
+    draft a checkpoint per distributed round and a rollback per miss."""
+    R, F = sess.iterations, sess.fused_iterations
+    S = sess.speculative_windows
+    kept = S - sess.transport.discarded_messages
+    calls = {"insert": admissions, "propose": R - F - kept,
+             "propose_spec": S, "verify": R, "ingest": F}
+    if recurrent:
+        calls.update(checkpoint=R - F, rollback=sess.pipeline_misses)
+    return calls
+
+
+def pipe_launches(sess, admissions: int, L_d: int, L_t: int,
+                  half_duplex: bool) -> dict:
+    """B1 launches of a greedy attention pair's transport server: every
+    window proposed (γ_max draft steps) and every verify (one pass), the
+    prefills of the admissions; a fused round verifies and ingests."""
+    R, F = sess.iterations, sess.fused_iterations
+    windows = R - F if half_duplex else (R - F
+                                         + sess.transport.discarded_messages)
+    return {"decode_attn": windows * GAMMA_MAX * L_d + (R - F) * L_t
+            + (F + admissions) * (L_d + L_t)}
+
+
+def pipeline_exact(torch, kernels) -> dict:
+    """Float32, published widths: a qwen3-14b target at QWEN_CUT depth
+    whose draft is its noised copy (the first noise of PIPE_NOISES whose
+    pipelined run has hits AND misses), 4 requests × 32 tokens through
+    2-slot servers, static γ 4: pipelined over the in-process transport, a
+    15 ms emulated link on the virtual clock and a TCP loopback socket,
+    dense and paged — tokens == the half-duplex server's == target greedy,
+    hits > 0 and misses > 0, graphs per step as called; one more
+    in-process run with γ and fused rounds changing every round
+    (CyclePolicy) == target greedy on the same graphs. zamba2 ← mamba2
+    (exact_ssm depths; random pair, every verdict a miss: the recurrent
+    checkpoint and rollback) == half-duplex == target greedy. T = 1.0 on
+    one seed: pipelined captured == eager. Returns the launch counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    from repro_torch.distributed import (EmulatedLinkTransport,
+                                         InProcessTransport, SocketTransport)
+    from repro_torch.models.model import build_model
+    from repro_torch.sim.network import LinkSpec
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    t_cfg = dataclasses.replace(get_config("qwen3-14b"),
+                                n_layers=QWEN_CUT["qwen3-14b"],
+                                dtype="float32")
+    model = build_model(t_cfg, dev)
+    target = model.init_params(1)
+    reqs = _workload(np, t_cfg.vocab, n=4)
+    P = 16 * math.ceil(max(r.prompt.size for r in reqs) / 16)
+    slots = P + 32 + 2 * GAMMA_MAX + 18
+    ref = {r.request_id: _greedy(torch, model, target, r.prompt,
+                                 r.max_new_tokens, slots, dev)[0]
+           for r in reqs}
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    static = lambda: StaticWindowPolicy(4)
+    ladder, eng = [], None
+    for noise in PIPE_NOISES:
+        eng = SpecDecodeEngine(t_cfg, t_cfg, target_params=target,
+                               draft_params=noised_copy(torch, target, noise,
+                                                        7),
+                               gamma_max=GAMMA_MAX, device=dev)
+        srv, _ = _serve(eng, static(), reqs, batch=PIPE_BATCH,
+                        transport=InProcessTransport(),
+                        mode_policy="pipeline")
+        s = srv._sessions[0]
+        ladder.append({"noise": noise, "hits": s.pipeline_hits,
+                       "misses": s.pipeline_misses,
+                       "acceptance": s.accepted / max(1, s.proposed)})
+        if s.pipeline_hits and s.pipeline_misses:
+            break
+        del eng, srv, s
+        eng = None
+        torch.cuda.empty_cache()
+    emit({"phase": "pipeline", "check": "noise ladder", "ladder": ladder,
+          "chosen_noise": ladder[-1]["noise"] if eng is not None else None})
+    if eng is None:
+        fail(f"pipeline: no noise in {PIPE_NOISES} gave hits and misses")
+    transports = {
+        "in-process": InProcessTransport,
+        "emulated 15/1/1 virtual": lambda: EmulatedLinkTransport(
+            LinkSpec(15.0, 1.0, 1.0), seed=0, sleep=False),
+        "socket loopback": lambda: SocketTransport.loopback(timeout_s=60.0)}
+    rows, bad = [], []
+    for lay, kw in (("dense", {}), ("paged", dict(paged_kv=True))):
+        _, half = _serve(eng, static(), reqs, batch=PIPE_BATCH,
+                         transport=InProcessTransport(),
+                         mode_policy="distributed", **kw)
+        for tname, make_tr in transports.items():
+            tr = make_tr()
+            g0 = graph_counts(eng)
+            kernels.reset_launches()
+            try:
+                srv, res = _serve(eng, static(), reqs, batch=PIPE_BATCH,
+                                  transport=tr, mode_policy="pipeline", **kw)
+            finally:
+                if isinstance(tr, SocketTransport):
+                    tr.close()
+            _add(totals, kernels.LAUNCHES)
+            sess = srv._sessions[0]
+            same = all(np.array_equal(res[i].tokens, ref[i])
+                       and np.array_equal(half[i].tokens, ref[i])
+                       for i in ref)
+            graphs = graphs_since(eng, g0)
+            want = want_step_graphs(pipe_calls(sess, len(reqs), False))
+            row = {"layout": lay, "transport": tname,
+                   "rounds": sess.iterations, "hits": sess.pipeline_hits,
+                   "misses": sess.pipeline_misses,
+                   "speculative_windows": sess.speculative_windows,
+                   "discarded": tr.discarded_messages,
+                   "link_ms": sess.link_ms, "graphs": graphs,
+                   "expected_graphs": want, "equal": same}
+            rows.append(row)
+            if not (same and sess.pipeline_hits and sess.pipeline_misses
+                    and graphs == want):
+                bad.append(row)
+    # γ changing every round and a fused round every fifth (CyclePolicy):
+    # the same 4 graphs + ingest serve every γ, hit, miss and admission
+    g0 = graph_counts(eng)
+    kernels.reset_launches()
+    srv, res = _serve(eng, CyclePolicy(), reqs, batch=PIPE_BATCH,
+                      transport=InProcessTransport(), mode_policy="pipeline")
+    _add(totals, kernels.LAUNCHES)
+    sess = srv._sessions[0]
+    graphs = graphs_since(eng, g0)
+    want = want_step_graphs(pipe_calls(sess, len(reqs), False))
+    row = {"layout": "dense", "transport": "in-process", "policy": "cycle",
+           "rounds": sess.iterations, "fused": sess.fused_iterations,
+           "hits": sess.pipeline_hits, "misses": sess.pipeline_misses,
+           "speculative_windows": sess.speculative_windows,
+           "graphs": graphs, "expected_graphs": want,
+           "equal": all(np.array_equal(res[i].tokens, ref[i]) for i in ref)}
+    rows.append(row)
+    if not (row["equal"] and sess.fused_iterations and graphs == want):
+        bad.append(row)
+    emit({"phase": "pipeline", "check": "pipelined == half-duplex == "
+          "target greedy", "dtype": "float32", "target": t_cfg.name,
+          "layers": t_cfg.n_layers, "noise": ladder[-1]["noise"],
+          "requests": len(reqs), "batch": PIPE_BATCH, "runs": rows,
+          "failures": bad, "seconds": time.perf_counter() - t0})
+    if bad:
+        fail(f"pipeline exactness: {bad}")
+
+    # T = 1.0, one seed: pipelined captured == eager (the speculative
+    # propose draws from the session generator between verifies)
+    t1 = time.perf_counter()
+    samp = SpecDecodeEngine(t_cfg, t_cfg, target_params=target,
+                            draft_params=eng.draft_params,
+                            temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                            device=dev)
+    kernels.reset_launches()
+    runs = {c: run_sessions(np, samp, reqs, static(), 0, batch=PIPE_BATCH,
+                            seed=3, capture=c, transport=InProcessTransport(),
+                            mode_policy="pipeline")
+            for c in (None, False)}
+    _add(totals, kernels.LAUNCHES)
+    same = all(np.array_equal(runs[None]["tokens"][i],
+                              runs[False]["tokens"][i])
+               and runs[None]["bits"][i] == runs[False]["bits"][i]
+               for i in runs[None]["tokens"])
+    emit({"phase": "pipeline", "check": "T=1 pipelined captured == eager "
+          "on one seed", "temperature": SAMPLED_T, "equal": same,
+          "acceptance": runs[None]["acceptance"],
+          "hits": runs[None]["hits"], "misses": runs[None]["misses"],
+          "seconds": time.perf_counter() - t1})
+    if not same:
+        fail("pipeline T=1: captured != eager on one seed")
+    del samp, eng, target
+    torch.cuda.empty_cache()
+
+    # zamba2 <- mamba2: every verdict misses, the checkpoint rolls back
+    t1 = time.perf_counter()
+    st_cfg, sd_cfg = ssm_pair_cfgs(full=False)
+    ssm = SpecDecodeEngine(sd_cfg, st_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    sreqs = _workload(np, st_cfg.vocab, n=4)
+    _, half = _serve(ssm, static(), sreqs, batch=PIPE_BATCH,
+                     transport=InProcessTransport(),
+                     mode_policy="distributed")
+    g0 = graph_counts(ssm)
+    kernels.reset_launches()
+    srv, pipe = _serve(ssm, static(), sreqs, batch=PIPE_BATCH,
+                       transport=InProcessTransport(), mode_policy="pipeline")
+    _add(totals, kernels.LAUNCHES)
+    sess = srv._sessions[0]
+    sref = {r.request_id: _greedy(torch, ssm.target, ssm.target_params,
+                                  r.prompt, r.max_new_tokens,
+                                  sess.slots_len, dev)[0] for r in sreqs}
+    same = all(np.array_equal(pipe[i].tokens, sref[i])
+               and np.array_equal(half[i].tokens, sref[i]) for i in sref)
+    graphs = graphs_since(ssm, g0)
+    want = want_step_graphs(pipe_calls(sess, len(sreqs), True))
+    emit({"phase": "pipeline", "check": "zamba2 <- mamba2 pipelined == "
+          "half-duplex == target greedy", "dtype": "float32",
+          "rounds": sess.iterations, "hits": sess.pipeline_hits,
+          "misses": sess.pipeline_misses, "graphs": graphs,
+          "expected_graphs": want, "equal": same,
+          "seconds": time.perf_counter() - t1})
+    if not same or graphs != want or not sess.pipeline_misses:
+        fail("pipeline zamba2 <- mamba2: tokens, graphs or no miss")
+    del ssm, srv, sess
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _served_row(torch, kernels, name, out, card, half_duplex) -> dict:
+    """Checks and the line of one served pipelined or half-duplex run."""
+    s = out.summary
+    eng, sess = out.server.engine, out.server._sessions[0]
+    L_d, L_t = eng.draft_cfg.n_layers, eng.target_cfg.n_layers
+    A, V = s["requests"], eng.target_cfg.vocab
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    want = pipe_launches(sess, A, L_d, L_t, half_duplex)
+    calls = (split_calls(sess.iterations, sess.fused_iterations, A, False)
+             if half_duplex else pipe_calls(sess, A, False))
+    graphs, graphs_want = summary_graphs(s), want_step_graphs(calls)
+    full = all(len(r.tokens) == 32 and (r.tokens >= 0).all()
+               and (r.tokens < V).all() for r in out.results)
+    row = s["pairs"]["pair0"]
+    info = {"phase": "pipeline", "run": name, "card": card,
+            "layers": [L_d, L_t], "requests": A, "tokens": s["tokens"],
+            "wall_s": s["wall_s"], "tokens_per_s": s["tokens_per_s"],
+            "mean_tpot_ms": s["mean_tpot_ms"],
+            "mean_ttft_ms": s["mean_ttft_ms"],
+            "mean_acceptance": s["mean_acceptance"],
+            "rounds": sess.iterations, "hits": sess.pipeline_hits,
+            "misses": sess.pipeline_misses,
+            "speculative_windows": sess.speculative_windows,
+            "discarded_windows": row["discarded_windows"],
+            "link_ms": sess.link_ms,
+            "link_ms_per_round": sess.link_ms / max(1, sess.iterations),
+            "decode_ms_per_round": sess.decode_wall_s * 1e3
+            / max(1, sess.iterations),
+            "link_recent_rtt_ms": s["link_recent_rtt_ms"],
+            "graphs": graphs, "expected_graphs": graphs_want,
+            "launches": launches, "expected_launches": want,
+            "all_full_in_range": full}
+    emit(info)
+    problems = []
+    if A != 8 or not full:
+        problems.append("incomplete or out-of-range outputs")
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    if graphs != graphs_want:
+        problems.append(f"graphs {graphs}, expected {graphs_want}")
+    if problems:
+        fail(f"pipeline {name}: {problems}")
+    return info
+
+
+def pipeline_serve(torch, kernels) -> dict:
+    """bf16 through ``repro_torch.launch.serve`` over a 15 ms link (jitter
+    1 ms, 1 Gbps), 8 requests × 32 tokens, batch 4, γ_max 8, static γ 4,
+    each pipelined run beside its half-duplex twin: qwen3-14b ← qwen2.5-3b
+    at the published depth, random weights (α = 0: every verdict misses,
+    pricing the wasted speculative propose); qwen2.5-3b ← a noised copy of
+    itself at the published depth (``node_params``) at each noise of
+    PIPE_SERVE_NOISES (a low and a high hit rate; the high one must hit).
+    Complete outputs, exact B1 launches (every window proposed, discarded
+    ones included), graphs per step as called. Returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    base = ["--full-size", "--max-batch", "4", "--requests", "8",
+            "--max-new", "32", "--gamma-max", str(GAMMA_MAX), "--seed", "0",
+            "--policy", "static", "--gamma", "4", "--json"] + LINK15
+    card = smi_line()
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    rows = {}
+
+    def run(name, argv, mode, node_params=None):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = serve.run(argv + ["--mode-policy", mode],
+                        node_params=node_params)
+        _add(totals, kernels.LAUNCHES)
+        info = _served_row(torch, kernels, name, out, card,
+                           mode == "distributed")
+        info["seconds"] = time.perf_counter() - t0
+        rows[name] = info
+        del out
+        torch.cuda.empty_cache()
+        return info
+
+    qwen = ["--target", "qwen3-14b", "--draft", "qwen2.5-3b"] + base
+    run("qwen3-14b <- qwen2.5-3b pipelined", qwen, "pipeline")
+    run("qwen3-14b <- qwen2.5-3b half-duplex", qwen, "distributed")
+    cfg = get_config("qwen2.5-3b")
+    dev = torch.device("cuda", 0)
+    target = build_model(cfg, dev).init_params(1)
+    self3b = ["--target", "qwen2.5-3b", "--draft", "qwen2.5-3b"] + base
+    for noise in PIPE_SERVE_NOISES:
+        params = {"cloud0": target,
+                  "edge0": noised_copy(torch, target, noise, 7)}
+        info = run(f"qwen2.5-3b <- noised ({noise}) pipelined", self3b,
+                   "pipeline", params)
+        run(f"qwen2.5-3b <- noised ({noise}) half-duplex", self3b,
+            "distributed", params)
+        del params
+    if not info["hits"]:
+        fail(f"pipeline: the qwen2.5-3b pair at noise {noise} never hit")
+    del target
+    torch.cuda.empty_cache()
+    emit({"phase": "pipeline", "check": "served, pipelined vs half-duplex",
+          "card": card, "tokens_per_s": {k: v["tokens_per_s"]
+                                         for k, v in rows.items()},
+          "mean_tpot_ms": {k: v["mean_tpot_ms"] for k, v in rows.items()}})
+    return totals
+
+
+def phase_pipeline(torch, kernels) -> dict:
+    totals = pipeline_exact(torch, kernels)
+    _add(totals, pipeline_serve(torch, kernels))
+    return totals
+
+
+def _spec_requests(np, spec, vocab: int) -> list:
+    """The request stream ``launch.serve`` makes from a spec's workload."""
+    from repro_torch.serving import ServeRequest
+    wl = spec.workload
+    rng = np.random.default_rng(spec.seed)
+    return [ServeRequest(i, rng.integers(0, vocab, int(rng.integers(
+        wl.prompt_lo, wl.prompt_hi))).astype(np.int32), wl.max_new)
+        for i in range(wl.num_requests)]
+
+
+def _cut_f32(names) -> dict:
+    from repro_torch.configs import get_config
+    return {n: dataclasses.replace(get_config(n), n_layers=QWEN_CUT[n],
+                                   dtype="float32") for n in names}
+
+
+def phase_topology(torch, kernels) -> dict:
+    """``examples/cluster_2pair.json`` (one shared qwen3-14b node, two
+    qwen2.5-3b drafts over 2 ms and 40 ms links, AWC) served through
+    ``launch.serve --topology`` in bf16 at the published widths and depth
+    (8 requests × 32 tokens): both pairs serve, complete outputs, exact B1
+    launches and graphs per pair; the same spec in f32 at QWEN_CUT: each
+    pair's tokens == target greedy. Two wave-server runs (bf16, QWEN_CUT)
+    beside two of its continuous twin. One process-backed pair
+    at the published depth (two worker hosts on the card, 20 ms link, 8
+    requests in two waves). The ``cluster_2pair_procs.json`` shape (four
+    hosts) in f32 at QWEN_CUT: tokens == the in-process deployment of the
+    same spec (each pair serving the same round-robin share), run after
+    that deployment is freed. Every host: its second wave under the
+    capture guard (a re-capture stops it), graphs as called. Each part runs
+    in a function of its own, so its models are freed when it returns.
+    Returns the launch counts (the hosts' included)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smi_line()
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    for part in (topology_cluster, topology_cluster_f32, topology_wave,
+                 topology_process_pair, topology_procs_f32):
+        _add(totals, part(torch, kernels, card))
+        torch.cuda.empty_cache()
+    return totals
+
+
+def topology_cluster(torch, kernels, card) -> dict:
+    """cluster_2pair in bf16, published widths and depth, through the
+    launcher, on the smoke's serve stream (8 requests × 32 tokens in place
+    of the file's 4 × 12, so that each pair runs enough rounds for AWC's
+    fused share to read)."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = serve.run(["--topology", str(ROOT / "examples"
+                                       / "cluster_2pair.json"),
+                     "--full-size", "--requests", "8", "--max-new", "32",
+                     "--json"])
+    launches = dict(kernels.LAUNCHES)
+    s, spec = out.summary, out.deployment.spec
+    want_l, pairs, problems = 0, {}, []
+    for pair, sess in zip(out.server.pairs, out.server._sessions):
+        eng, row = pair.engine, s["pairs"][pair.pair_id]
+        L_d, L_t = eng.draft_cfg.n_layers, eng.target_cfg.n_layers
+        R, F, A = sess.iterations, sess.fused_iterations, row["requests"]
+        want_l += ((R - F) * (spec.serving.gamma_max * L_d + L_t)
+                   + (F + A) * (L_d + L_t))
+        want_g = want_step_graphs(split_calls(R, F, A, False))
+        got_g = graph_counts(eng)
+        pairs[pair.pair_id] = {k: row[k] for k in (
+            "requests", "iterations", "mean_gamma", "fused_fraction",
+            "link_ms", "recent_rtt_ms")}
+        pairs[pair.pair_id].update(graphs=got_g, expected_graphs=want_g)
+        if got_g != want_g or not A:
+            problems.append(pair.pair_id)
+    V = out.deployment.vocab
+    full = all(len(r.tokens) == spec.workload.max_new
+               and (r.tokens >= 0).all() and (r.tokens < V).all()
+               for r in out.results)
+    emit({"phase": "topology", "run": "cluster_2pair bf16 full depth",
+          "card": card, "pairs": pairs, "tokens_per_s": s["tokens_per_s"],
+          "mean_tpot_ms": s["mean_tpot_ms"],
+          "mean_ttft_ms": s["mean_ttft_ms"], "launches": launches,
+          "expected_launches": {"decode_attn": want_l},
+          "all_full_in_range": full, "seconds": time.perf_counter() - t0})
+    if problems or not full or {k: n for k, n in launches.items()
+                                if n} != {"decode_attn": want_l}:
+        fail(f"topology cluster_2pair: pairs {problems}, full {full}, "
+             f"launches {launches} (expected B1 {want_l})")
+    return launches
+
+
+def topology_cluster_f32(torch, kernels, card) -> dict:
+    """cluster_2pair in f32 at QWEN_CUT: each pair == target greedy."""
+    import numpy as np
+    from repro_torch.topology import ClusterSpec, build_deployment
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    spec = ClusterSpec.load(str(ROOT / "examples" / "cluster_2pair.json"))
+    dep = build_deployment(spec, model_configs=_cut_f32(
+        ("qwen3-14b", "qwen2.5-3b")), reduced=False, device=dev,
+        sleep_links=False)
+    reqs = _spec_requests(np, spec, dep.vocab)
+    srv = dep.build_server()
+    for r in reqs:
+        srv.submit(dataclasses.replace(r))
+    kernels.reset_launches()
+    res = {r.request_id: r for r in srv.run()}
+    launches = dict(kernels.LAUNCHES)
+    eng = dep.pairs[0].engine
+    slots = srv._sessions[0].slots_len
+    same = all(np.array_equal(res[r.request_id].tokens, _greedy(
+        torch, eng.target, eng.target_params, r.prompt, r.max_new_tokens,
+        slots, dev)[0]) for r in reqs)
+    served = {p: sum(1 for r in res.values() if r.pair_id == p)
+              for p in ("lan", "wan")}
+    emit({"phase": "topology", "check": "cluster_2pair f32 QWEN_CUT == "
+          "target greedy", "served": served, "equal": same,
+          "seconds": time.perf_counter() - t0})
+    if not same or not all(served.values()):
+        fail(f"topology cluster_2pair f32: equal {same}, served {served}")
+    return launches
+
+
+def topology_wave(torch, kernels, card) -> dict:
+    """The wave server in bf16 at QWEN_CUT (static γ 4, 8 requests × 32 in
+    two waves of 4) and its continuous twin with the same flags, run in the
+    order wave, continuous, continuous, wave so that neither gains from
+    going second: each wave run's two waves share one session, so its
+    insert and round steps each warm up and capture once (exact graph
+    counts); the two servers differ only in the scheduler."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    argv = ["--full-size", "--requests", "8", "--max-new", "32",
+            "--gamma-max", str(GAMMA_MAX), "--policy", "static", "--gamma",
+            "4", "--json"]
+    kernels.reset_launches()
+    rows = {"wave": [], "continuous": []}
+    problems = []
+    for name in ("wave", "continuous", "continuous", "wave"):
+        with depth_cut(QWEN_CUT):
+            out = serve.run(argv + ["--server", name])
+        s = out.summary
+        row = {k: s[k] for k in ("tokens_per_s", "mean_tpot_ms",
+                                 "mean_ttft_ms")}
+        if name == "wave":
+            want = want_step_graphs({"insert": s["requests"],
+                                     "round": out.server.session.iterations})
+            row.update(rounds=out.server.session.iterations,
+                       graphs=summary_graphs(s))
+            if summary_graphs(s) != want:
+                problems.append(f"graphs {summary_graphs(s)} (expected "
+                                f"{want})")
+        else:
+            row.update(rounds=out.server._sessions[0].iterations)
+        if s["requests"] != 8 or any(len(r.tokens) != 32
+                                     for r in out.results):
+            problems.append(f"{name}: {s['requests']} requests, not all "
+                            "complete")
+        rows[name].append(row)
+        del out
+    launches = dict(kernels.LAUNCHES)
+    emit({"phase": "topology", "run": "wave server bf16 QWEN_CUT beside "
+          "its continuous twin (wave, cont., cont., wave)", "card": card,
+          "runs": rows, "problems": problems,
+          "seconds": time.perf_counter() - t0})
+    if problems:
+        fail(f"topology wave server: {problems}")
+    return launches
+
+
+def topology_process_pair(torch, kernels, card) -> dict:
+    """A process-backed qwen3-14b ← qwen2.5-3b pair at the published depth
+    in bf16: two worker hosts on the card, each holding its own model, a
+    20 ms link, 8 requests × 32 tokens in two waves of 4."""
+    import numpy as np
+    from repro_torch.topology import build_deployment, one_pair_spec
+    t0 = time.perf_counter()
+    spec = one_pair_spec(link_rtt_ms=20.0, link_jitter_ms=0.0,
+                         mode_policy="distributed", gamma_max=GAMMA_MAX,
+                         max_batch=4, requests=8, max_new=32)
+    spec.pairs[0].process = True
+    spec.serving.max_new_cap = 32
+    dep = build_deployment(spec, reduced=False,
+                           device=torch.device("cuda", 0),
+                           host_timeout_s=600.0)
+    try:
+        t_up = time.perf_counter() - t0
+        srv = dep.build_server()
+        for r in _spec_requests(np, spec, dep.vocab):
+            srv.submit(r)
+        t1 = time.perf_counter()
+        res = srv.run()
+        wall = time.perf_counter() - t1
+        row = srv.pair_summaries()["pair0"]
+    finally:
+        dep.shutdown()
+    cfgs = dep.node_configs
+    problems = check_hosts(row, cfgs["edge0"].n_layers,
+                           cfgs["cloud0"].n_layers, 8, GAMMA_MAX)
+    tokens = sum(len(r.tokens) for r in res)
+    emit({"phase": "topology", "run": "process-backed pair bf16 full depth",
+          "card": card, "startup_s": t_up, "wall_s": wall,
+          "tokens_per_s": tokens / wall,
+          "mean_tpot_ms": float(np.mean([r.tpot_ms for r in res])),
+          "mean_ttft_ms": float(np.mean([r.ttft_ms for r in res])),
+          "host": row, "problems": problems,
+          "seconds": time.perf_counter() - t0})
+    if problems or tokens != 8 * 32:
+        fail(f"topology process pair: {problems}, tokens {tokens}")
+    totals: dict = {}
+    for side in ("target_launches", "draft_launches"):
+        _add(totals, row[side])
+    return totals
+
+
+def topology_procs_f32(torch, kernels, card) -> dict:
+    """cluster_2pair_procs.json in f32 at QWEN_CUT (8 requests): the
+    in-process deployment of the same spec, each pair serving its
+    round-robin share, then — after it is freed — the four worker hosts;
+    tokens equal per request."""
+    import numpy as np
+    from repro_torch.topology import ClusterSpec, build_deployment
+    t0 = time.perf_counter()
+    procs = ClusterSpec.load(str(ROOT / "examples"
+                                 / "cluster_2pair_procs.json"))
+    procs.workload.num_requests = 8
+    cfgs = _cut_f32(("qwen3-14b", "qwen2.5-3b"))
+    local, vocab = in_process_shares(torch, procs, cfgs)
+    torch.cuda.empty_cache()
+    reqs = _spec_requests(np, procs, vocab)
+    dep = build_deployment(procs, model_configs=cfgs, reduced=False,
+                           device=torch.device("cuda", 0),
+                           host_timeout_s=600.0)
+    try:
+        srv = dep.build_server()
+        for r in reqs:
+            srv.submit(dataclasses.replace(r))
+        hosted = {r.request_id: r.tokens for r in srv.run()}
+        rows = srv.pair_summaries()
+    finally:
+        dep.shutdown()
+    problems = {pid: check_hosts(r, cfgs["qwen2.5-3b"].n_layers,
+                                 cfgs["qwen3-14b"].n_layers, 4,
+                                 procs.serving.gamma_max)
+                for pid, r in rows.items()}
+    totals: dict = {}
+    for r in rows.values():
+        for side in ("target_launches", "draft_launches"):
+            _add(totals, r[side])
+    same = sorted(hosted) == sorted(local) and all(
+        np.array_equal(hosted[i], local[i]) for i in local)
+    emit({"phase": "topology", "check": "cluster_2pair_procs f32 QWEN_CUT "
+          "four hosts == in-process deployment", "equal": same,
+          "hosts": rows, "problems": problems,
+          "seconds": time.perf_counter() - t0})
+    if not same or any(problems.values()):
+        fail(f"topology procs: equal {same}, {problems}")
+    return totals
+
+
+def in_process_shares(torch, spec, cfgs) -> tuple:
+    """The in-process deployment of ``spec`` with every pair in process,
+    pair i serving requests i, i + n, ... (the hosts' round-robin
+    buckets); returns (tokens by request, vocab). Its models are freed on
+    return."""
+    import numpy as np
+    from repro_torch.serving import SpecDecodeServer
+    from repro_torch.topology import ClusterSpec, build_deployment
+    inproc = ClusterSpec.from_json(spec.to_json())
+    for p in inproc.pairs:
+        p.process = False
+    dep = build_deployment(inproc, model_configs=cfgs, reduced=False,
+                           device=torch.device("cuda", 0), sleep_links=False)
+    reqs = _spec_requests(np, spec, dep.vocab)
+    local = {}
+    for i, pair in enumerate(dep.pairs):
+        srv = SpecDecodeServer(cfg=dep.server_config(), pairs=[pair])
+        for r in reqs[i::len(dep.pairs)]:
+            srv.submit(dataclasses.replace(r))
+        local.update({r.request_id: r.tokens for r in srv.run()})
+    return local, dep.vocab
+
+
+def check_hosts(row: dict, L_d: int, L_t: int, admissions: int,
+                gamma_max: int) -> list:
+    """A process-backed pair's hosts after two waves: every wave ran, the
+    second under the capture guard; graphs as called (target: insert,
+    verify; draft: insert, propose, apply); exact B1 launches (each host
+    prefills its model and the one-layer peer stub; the draft proposes
+    γ_max steps a round, the target verifies once)."""
+    problems = []
+    if row["waves"] != 2:
+        problems.append(f"waves {row['waves']}")
+    if (row["target_graphs"], row["draft_graphs"]) != (2, 3):
+        problems.append(f"graphs {row['target_graphs']} / "
+                        f"{row['draft_graphs']}")
+    R = row["iterations"]
+    want = {"target": R * L_t + admissions * (L_t + 1),
+            "draft": R * gamma_max * L_d + admissions * (L_d + 1)}
+    for side in ("target", "draft"):
+        got = row[f"{side}_launches"].get("decode_attn", 0)
+        if got != want[side]:
+            problems.append(f"{side} B1 {got}, expected {want[side]}")
+    return problems
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3024,6 +3703,15 @@ def main(argv=None) -> int:
         for k, n in ssm_totals.items():
             totals[k] = totals.get(k, 0) + n
         seconds["serve_ssm"] = time.perf_counter() - t0
+    for name, phase, main_path in (
+            ("pipeline", phase_pipeline, PIPE_KERNELS),
+            ("topology", phase_topology, TOPO_KERNELS)):
+        t0 = time.perf_counter()
+        if name in phases:
+            phase_totals = phase(torch, kernels)
+            idle += [k for k in main_path if not phase_totals.get(k)]
+            _add(totals, phase_totals)
+            seconds[name] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
     csrc = "src/repro_torch/csrc/"
     replaces = {

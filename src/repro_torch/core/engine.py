@@ -175,8 +175,8 @@ class GenerationStats:
     gamma_seq: list = field(default_factory=list)
     produced: Any = None             # (B,) per-sequence tokens produced
                                      # (anchor included; ≤ max_new)
-    pipeline_hits: int = 0           # optimistic windows kept (pipelined
-    pipeline_misses: int = 0         # mode, not ported yet: 0) / rolled back
+    pipeline_hits: int = 0           # speculative windows kept (pipelined
+    pipeline_misses: int = 0         # mode) / discarded and rolled back
 
     @property
     def acceptance_rate(self) -> float:

@@ -62,8 +62,50 @@ to the host, the received window to the device, the verdict (n_accepted,
 num_new, next_token, last_token, done; path for trees) to the host in one
 copy, and, for a recurrent or tree draft, the received verdict's fields
 back to the device, all through pinned buffers; the device segments
-between them run under ``no_host_sync``. The pipelined mode
-(``mode_policy="pipeline"``) is the next slice of ROADMAP item A9.
+between them run under ``no_host_sync``.
+
+With ``mode_policy="pipeline"`` the rounds are CROSS-ROUND PIPELINED
+(:meth:`DecodeSession._run_chunk_pipeline`, the reference's
+``_run_chunk_pipeline``): while window k's verdict is in flight the draft
+proposes window k+1 from its own prediction of that verdict (every γ
+proposal accepted, the reserved proposal γ as the bonus token, the host
+mirror of ``slot_stop_mask`` for budget and EOS: :func:`predict_verdict`)
+and posts it speculatively. A verdict equal to the prediction (num_new,
+done, last_token) is a HIT and window k+1 is the next round's window;
+otherwise it is a MISS: window k+1 is discarded unverified and the draft
+rolls back to the commit point. The target only ever verifies a window
+whose anchor is its committed last token, so at temperature 0 the tokens
+are the half-duplex stream's. How the in-place port keeps the draft's
+state:
+
+- The draft's cursor. The speculative propose never reads the state the
+  target's verify writes (``last_token``, ``pos``): its anchor is the
+  predicted last token and its start the pending window's start (the draft
+  window's ``pos``, which every propose records) plus the predicted
+  ``num_new``, both from a draft-side buffer filled from the host.
+- An attention draft needs no copy to roll back. Session caches are never
+  ring caches (pipeline refuses one); the speculative window writes from
+  the predicted start, which is at or past the committed end (a committed
+  count never exceeds its prediction), and positions mask everything past
+  the committed end until a later window overwrites it, before any query
+  reaches it. The cache length reserves 2·γ_max past the budget
+  (:meth:`DecodeSession._cache_len`) and a paged reservation the same
+  overhang (:meth:`DecodeSession.blocks_needed`), so the speculative writes
+  stay inside the row. This replaces the reference's kept propose cache.
+- A recurrent draft (ssm, hybrid) checkpoints. ``advance`` moves the
+  recurrent state in place, and the optimistic advance over window k must
+  run before window k+1 is proposed, so one captured step first copies the
+  pre-window state into a session-owned checkpoint and window k (anchor,
+  proposals, start) into a record the speculative propose does not touch,
+  then advances over the predicted prefix; a miss restores the checkpoint
+  and re-advances over the record by the received ``num_new`` (one
+  captured step). The speculative window's own checkpoint waits for window
+  k's verdict: it is taken on a hit.
+
+Graphs of a pipelined session: insert, propose, speculative propose and
+verify (+ ingest once a fused round ran); a recurrent draft adds the
+checkpoint and the rollback. Their number is flat over γ, hits, misses and
+admissions.
 """
 
 from __future__ import annotations
@@ -77,7 +119,7 @@ import numpy as np
 import torch
 
 from ..distributed.transport import Transport
-from ..distributed.wire import TransportProtocolError, WindowMsg
+from ..distributed.wire import TransportProtocolError, VerdictMsg, WindowMsg
 from ..models.kvcache import BlockAllocator, logical_blocks, reset_slot
 # fused-mode tokens stream edge-ward one control round trip per this many
 # committed tokens — the same amortization the link model charges
@@ -86,6 +128,50 @@ from .capture import CapturedStep
 from .engine import DEFAULT_GAMMA_MAX, GenerationStats
 from .specdec import SpecDecodeState
 from .window import FeatureSnapshot
+
+
+def predict_verdict(tokens: np.ndarray, last: np.ndarray, gamma: int,
+                    done: np.ndarray, cursor: np.ndarray,
+                    max_new: np.ndarray, eos_id: int):
+    """The pipelined mode's optimistic verdict of one window: the host
+    mirror of :func:`~repro_torch.core.specdec.slot_stop_mask` applied to a
+    window whose ``gamma`` proposals are all accepted and whose bonus token
+    is proposal ``gamma`` (the reserved guess). ``tokens`` (B, γ_max) the
+    proposals, ``last`` (B,) the window's anchor, ``done``/``cursor``/
+    ``max_new`` the rows' lifecycle before the round. Returns (num_new,
+    done, last_token) as the device rule would commit them; a verdict
+    equal to all three is a hit."""
+    B, G = tokens.shape
+    bonus = tokens[:, gamma]
+    committed = np.full((B, G + 1), -1, np.int32)
+    committed[:, :gamma] = tokens[:, :gamma]
+    committed[:, gamma] = bonus
+    num = np.where(~done, np.minimum(gamma + 1,
+                                     np.maximum(0, max_new - cursor)), 0)
+    ar = np.arange(G + 1)[None, :]
+    is_eos = (committed == eos_id) & (ar < num[:, None]) & (eos_id >= 0)
+    has_eos = is_eos.any(axis=1)
+    num = np.where(has_eos, np.minimum(num, is_eos.argmax(axis=1) + 1), num)
+    num = num.astype(np.int32)
+    done_opt = done | (cursor + num >= max_new) | has_eos
+    last_opt = np.where(done, last, bonus).astype(np.int32)
+    return num, done_opt, last_opt
+
+
+@dataclass
+class PipeWindow:
+    """One posted window of the pipelined mode and its predicted verdict."""
+    msg: WindowMsg
+    num_new: np.ndarray              # predicted (B,) committed counts
+    done: np.ndarray                 # predicted (B,) done flags
+    last: np.ndarray                 # predicted (B,) last tokens
+    draft_ms: float
+
+    @property
+    def pred_row(self) -> np.ndarray:
+        """The draft cursor of a window speculated on this one: the
+        predicted anchor, then the predicted count."""
+        return np.concatenate([self.last, self.num_new])
 
 
 @dataclass
@@ -159,8 +245,11 @@ class DecodeSession:
                        granularity,
     ``eos_id``         stop token (−1 disables; per-slot budgets always cap),
     ``mode_policy``    ``"auto"`` honors ``WindowDecision.mode``,
-                       ``"distributed"``/``"fused"`` force one mode
-                       (``"pipeline"``: the next slice of ROADMAP A9),
+                       ``"distributed"``/``"fused"`` force one mode,
+                       ``"pipeline"`` honors it and overlaps window k+1's
+                       draft with window k's verdict (needs a transport
+                       and γ_max ≥ 2: proposal γ is the bonus guess, so γ
+                       caps at γ_max − 1; linear windows only),
     ``transport``      a :class:`repro_torch.distributed.Transport`: the
                        rounds run as draft→verify→verdict exchanges between
                        the engine's split workers over it (colocated steps
@@ -202,6 +291,23 @@ class DecodeSession:
                  kv_pool_blocks=None, kv_quantize: bool = False,
                  transport=None, max_branches: int = 0, seed: int = 0,
                  capture: Optional[bool] = None):
+        if mode_policy not in ("auto", "distributed", "fused", "pipeline"):
+            raise ValueError(f"unknown mode_policy {mode_policy!r}")
+        if gamma_max:
+            self.gamma_max = int(gamma_max)
+        elif engine.gamma_max:
+            self.gamma_max = engine.gamma_max
+        else:
+            self.gamma_max = DEFAULT_GAMMA_MAX
+        if mode_policy == "pipeline":
+            if transport is None:
+                raise ValueError(
+                    "pipeline mode overlaps rounds across a transport; "
+                    "colocated sessions have nothing to overlap")
+            if self.gamma_max < 2:
+                raise ValueError(
+                    "pipeline mode reserves one proposal slot as the bonus "
+                    "guess; gamma_max must be ≥ 2")
         # ---- tree speculation (core/tree.py), the reference's gates ------
         self.max_branches = int(max_branches or 0)
         if self.max_branches:
@@ -222,12 +328,6 @@ class DecodeSession:
                     "path relocation is pos_map surgery on dense rows)")
         self._branches_eff = 1
         self._branches_prev = 1.0
-        if mode_policy == "pipeline":
-            raise NotImplementedError(
-                "the pipelined mode (window k+1 drafted while window k is "
-                "verified) is the next slice of ROADMAP item A9; the "
-                "half-duplex transport rounds run with mode_policy auto, "
-                "distributed or fused")
         if transport is not None and not isinstance(transport, Transport):
             raise TypeError(f"transport must be a repro_torch.distributed."
                             f"Transport, got {type(transport).__name__}")
@@ -248,16 +348,8 @@ class DecodeSession:
         self.max_new_cap = int(max_new_cap)
         self.max_prompt_len = (None if max_prompt_len is None
                                else int(max_prompt_len))
-        if gamma_max:
-            self.gamma_max = int(gamma_max)
-        elif engine.gamma_max:
-            self.gamma_max = engine.gamma_max
-        else:
-            self.gamma_max = DEFAULT_GAMMA_MAX
         self.sync_every = max(1, int(sync_every or engine.sync_every))
         self.eos_id = -1 if eos_id is None else int(eos_id)
-        if mode_policy not in ("auto", "distributed", "fused"):
-            raise ValueError(f"unknown mode_policy {mode_policy!r}")
         self.mode_policy = mode_policy
         # the key this session presents to the window policy (adaptive
         # policies keep one stabilizer per draft–target pair)
@@ -303,14 +395,16 @@ class DecodeSession:
         self.gamma_rounds = 0
         self.fused_iterations = 0
         self.link_ms = 0.0               # unhidden transport delay so far
-        self.pipeline_hits = 0           # the pipelined mode's counters (0
-        self.pipeline_misses = 0         # until that mode is ported)
+        self.pipeline_hits = 0           # verdicts as predicted
+        self.pipeline_misses = 0         # … and not (the draft rolls back)
+        self.speculative_windows = 0     # windows posted before the verdict
         self.control_roundtrips = 0      # fused-mode stream flushes
         self._fused_pending = 0          # fused tokens since the last flush
         self._round_seq = 0              # wire round ids (RTT pairing)
         self._wire = None                # transport rounds' buffers, steps
         self._alpha_recent: list[float] = []
         self._tpot_recent: list[float] = []
+        self._pipe_recent: list[float] = []
         self._gamma_prev = 4.0
 
     # ------------------------------------------------------------- geometry
@@ -599,7 +693,11 @@ class DecodeSession:
             fused = False
         else:
             fused = dec.mode == "fused"
-        gamma_eff = 0 if fused else min(self.gamma_max, max(1, int(dec.gamma)))
+        # pipeline mode reserves the (γ+1)-th proposal as the bonus guess
+        # the speculative next window anchors on: γ caps one below γ_max
+        cap = (self.gamma_max - 1 if self.mode_policy == "pipeline"
+               else self.gamma_max)
+        gamma_eff = 0 if fused else min(cap, max(1, int(dec.gamma)))
         # tree sessions honor the decision's branch width, clamped to the
         # bound; a fused round (γ = 0) and linear sessions run b = 1
         if self.max_branches and not fused:
@@ -625,8 +723,11 @@ class DecodeSession:
         off the device, acceptance bits are attributed to the request in
         each slot and the window-policy features update. Returns the number
         of rounds run. With a transport the rounds are half-duplex
-        exchanges (:meth:`_run_chunk_transport`)."""
+        exchanges (:meth:`_run_chunk_transport`), pipelined ones with
+        ``mode_policy="pipeline"`` (:meth:`_run_chunk_pipeline`)."""
         if self.transport is not None:
+            if self.mode_policy == "pipeline":
+                return self._run_chunk_pipeline(policy, max_iters, q_depth)
             return self._run_chunk_transport(policy, max_iters, q_depth)
         n = self.sync_every
         if max_iters is not None:
@@ -705,7 +806,8 @@ class DecodeSession:
                  B, G, dev, vocab=eng.draft_cfg.vocab,
                  sampled=eng.temperature > 0.0),
              "verdict": VerdictBuffer(B, 0, dev),
-             "tokens_in": zeros(B, G)}
+             "tokens_in": zeros(B, G),
+             "last_in": zeros(B)}
         if self.max_branches:
             T = eng._tree_spec(G, self.max_branches).n_entries
             w.update(tree=DraftWindow.empty(B, T, dev, d_max=G),
@@ -713,12 +815,31 @@ class DecodeSession:
                      grid_in=zeros(B, T))
         host = {"proposals": w["linear"].tokens,
                 "received": w["linear"].received,
-                "tokens_in": w["tokens_in"], "verdict": w["verdict"].flat}
+                "tokens_in": w["tokens_in"], "verdict": w["verdict"].flat,
+                "last_in": w["last_in"]}
         if self.max_branches:
             host.update(grid=w["tree"].tokens,
                         tree_received=w["tree"].received,
                         grid_in=w["grid_in"],
                         tree_verdict=w["tree_verdict"].flat)
+        if self.mode_policy == "pipeline":
+            # the draft cursor of a speculative window (predicted anchor,
+            # predicted count), the non-speculative window's anchor, and
+            # for a recurrent draft the checkpoint and window record
+            w["pred"] = zeros(2 * B)
+            host.update(pred=w["pred"], anchor=w["linear"].anchor)
+            st = self._state
+            if any(getattr(c, "ring", False) or getattr(
+                    getattr(c, "shared_attn", None), "ring", False)
+                   for c in (st.draft_cache, st.target_cache)):
+                raise ValueError("pipeline mode rolls an attention draft "
+                                 "back by positions; a ring cache would "
+                                 "wrap the speculative writes")
+            if not eng._draft_attention:
+                from ..distributed.workers import recurrent_clone
+                w["record"] = DraftWindow.empty(B, G, dev)
+                w["ckpt"] = recurrent_clone(st.draft_cache)
+                host["record"] = w["record"].received
         w["host"] = {k: HostImage(v) for k, v in host.items()}
         w["steps"] = {}
         self._wire = w
@@ -727,7 +848,9 @@ class DecodeSession:
         """The session's captured step of one worker program (built at its
         first call), bound to the session's state and buffers: ``propose``,
         ``verify``, ``advance``, ``ingest``, ``propose_tree``,
-        ``verify_tree``, ``ingest_tree``."""
+        ``verify_tree``, ``ingest_tree``, the pipelined mode's
+        ``propose_spec``, ``checkpoint`` and ``rollback``, and a draft
+        host's ``apply``."""
         steps = self._wire["steps"]
         if name in steps:
             return steps[name]
@@ -749,9 +872,32 @@ class DecodeSession:
             ins = {"gamma": self._gamma_in, "row": self._row_in}
             body = lambda: fn(st, tokens_in, lin.q_probs, ins["gamma"],
                               ins["row"], *bufs, verdict, generator=gen)
+        elif name == "propose_spec":
+            # the draft's own cursor: predicted anchor, and the pending
+            # window's start plus the predicted count (never the target's
+            # last_token/pos)
+            fn, pred, B = dw.propose(G), w["pred"], self.capacity
+            body = lambda: fn(st.draft_cache, pred[:B], lin.pos + pred[B:],
+                              lin, generator=gen)
+        elif name == "checkpoint":
+            fn, pred, B = dw.checkpoint(G), w["pred"], self.capacity
+            ckpt, rec = w["ckpt"], w["record"]
+            body = lambda: fn(st.draft_cache, ckpt, lin, rec, pred[B:])
+        elif name == "rollback":
+            fn, ckpt, rec = dw.rollback(G), w["ckpt"], w["record"]
+            body = lambda: fn(st.draft_cache, ckpt, rec)
         elif name == "advance":
             fn = dw.advance(G)
             body = lambda: fn(st.draft_cache, lin)
+        elif name == "apply":
+            adv = None if eng._draft_attention else dw.advance(G)
+            last_in = w["last_in"]
+
+            def body():
+                if adv is not None:
+                    adv(st.draft_cache, lin)
+                st.pos.copy_(lin.pos + lin.num_new)
+                st.last_token.copy_(last_in)
         elif name == "ingest":
             fn = dw.ingest()
             body = lambda: fn(st.draft_cache, verdict.anchor, verdict.pos,
@@ -781,6 +927,14 @@ class DecodeSession:
         tr = self.transport
         tr.post_window(msg)
         got, waited = tr.recv_window()
+        self._check_window(got, msg)
+        return got, waited
+
+    @staticmethod
+    def _check_window(got: WindowMsg, msg: WindowMsg) -> None:
+        """The window the target received is the one the draft posted for
+        that round: its round id and shape, and the draft's
+        distributions passed through where they lie."""
         if (got.round_id != msg.round_id
                 or np.shape(got.tokens) != msg.tokens.shape):
             raise TransportProtocolError(
@@ -792,7 +946,6 @@ class DecodeSession:
             # they lie; a transport must hand that tensor through
             raise TransportProtocolError(
                 "the window's q_probs did not pass through the transport")
-        return got, waited
 
     def _return(self, verdict):
         """Post the target's verdict, receive it on the draft side; returns
@@ -821,12 +974,7 @@ class DecodeSession:
         msg = WindowMsg(tokens=tokens, gamma=gamma, n_active=n_active,
                         q_probs=lin.q_probs, round_id=rid)
         got, link_ms = self._exchange(msg)
-        self._segment(self._worker_step("verify"),
-                      before=[lambda: h["tokens_in"].put(got.tokens)],
-                      after=[h["verdict"].fetch],
-                      gamma=self._gamma_tab[gamma], row=self._row_tab[r])
-        verdict = w["verdict"].message(h["verdict"].wait(), gamma, n_active,
-                                       rid)
+        verdict = self._verify(got, r)
         got_v, waited = self._return(verdict)
         if not self.engine._draft_attention:
             img = h["received"]
@@ -834,6 +982,17 @@ class DecodeSession:
             self._segment(self._worker_step("advance"),
                           before=[lambda: img.put(img.np)])
         return got_v, link_ms + waited, draft_ms
+
+    def _verify(self, got: WindowMsg, r: int) -> VerdictMsg:
+        """The target's verify of a received linear window (stats row
+        ``r``); returns its verdict off the device."""
+        w, h = self._wire, self._wire["host"]
+        self._segment(self._worker_step("verify"),
+                      before=[lambda: h["tokens_in"].put(got.tokens)],
+                      after=[h["verdict"].fetch],
+                      gamma=self._gamma_tab[got.gamma], row=self._row_tab[r])
+        return w["verdict"].message(h["verdict"].wait(), got.gamma,
+                                    got.n_active, got.round_id)
 
     def _tree_round(self, r: int, gamma: int, n_active: int):
         """One distributed tree round: the grid crosses with its parent
@@ -874,20 +1033,21 @@ class DecodeSession:
         the draft ingests the round's anchor so its cache stays coherent for
         a later distributed round, and tokens stream edge-ward one control
         round trip per ``FUSED_FLUSH_TOKENS`` committed tokens. Returns (the
-        done flags, the unhidden link ms of the flushes)."""
+        verdict's (5, B) rows: n_accepted, num_new, next_token, last_token,
+        done; the unhidden link ms of the flushes)."""
         w, h = self._wire, self._wire["host"]
         self._segment(self._worker_step("verify"),
                       before=[w["tokens_in"].zero_],
                       gamma=self._gamma_tab[0], row=self._row_tab[r])
         self._segment(self._worker_step("ingest"),
                       after=[h["verdict"].fetch])
-        rows = h["verdict"].wait()[:5 * self.capacity].reshape(5, -1)
+        rows = h["verdict"].wait()[:5 * self.capacity].reshape(5, -1).copy()
         self._fused_pending += int(rows[1].sum())
         link_ms = 0.0
         while self._fused_pending >= FUSED_FLUSH_TOKENS:
             link_ms += self._flush()
             self._fused_pending -= FUSED_FLUSH_TOKENS
-        return rows[4].astype(bool), link_ms
+        return rows, link_ms
 
     def _flush(self) -> float:
         """One fused-mode control round trip; returns its unhidden ms."""
@@ -923,7 +1083,8 @@ class DecodeSession:
             gamma, fused = self._decide(policy, q_depth)
             n_active = int(B - done_host.sum())
             if fused:
-                done_host, ms = self._fused_round(r)
+                rows, ms = self._fused_round(r)
+                done_host = rows[4].astype(bool)
             else:
                 round_fn = (self._tree_round if self.max_branches
                             else self._linear_round)
@@ -946,6 +1107,229 @@ class DecodeSession:
         # time and the link delay come out (the delay only where the
         # transport slept it into wall time; a virtual clock gets it
         # instead)
+        self._sync_and_attribute(
+            it_run, chunk_gammas, chunk_t0,
+            non_target_ms=draft_ms + (link_ms if tr.wall_clock else 0.0),
+            virtual_extra_ms=0.0 if tr.wall_clock else link_ms)
+        return it_run
+
+    # ------------------------------------- one side of a process-split pair
+
+    def propose_window(self, gamma: int, n_active: int,
+                       round_id: int) -> WindowMsg:
+        """A draft host's half of a round: propose from this session's own
+        committed state and return the window to post."""
+        self._wire_init()
+        h = self._wire["host"]
+        self._segment(self._worker_step("propose"),
+                      after=[h["proposals"].fetch])
+        return WindowMsg(tokens=h["proposals"].wait().copy(), gamma=gamma,
+                         n_active=n_active, round_id=round_id)
+
+    def apply_verdict(self, verdict: VerdictMsg) -> None:
+        """A draft host applies the verdict it received to its own state: a
+        recurrent draft re-advances over the window by ``num_new``, and
+        ``pos``/``last_token`` take the committed ones (the target's verify
+        writes them in process; here nothing else does)."""
+        from ..distributed.workers import DraftWindow
+        h = self._wire["host"]
+        rec, last = h["received"], h["last_in"]
+        DraftWindow.pack_received(verdict, rec.np)
+
+        def put():
+            rec.put(rec.np)
+            last.put(verdict.last_token)
+
+        self._segment(self._worker_step("apply"), before=[put])
+
+    def verify_window(self, msg: WindowMsg, row: int) -> VerdictMsg:
+        """A target host's half of a round: verify the received window into
+        stats row ``row`` and return the verdict to post."""
+        self._wire_init()
+        return self._verify(msg, row)
+
+    # --------------------------------------------------- pipelined rounds
+
+    def _make_window(self, gamma: int, done_host: np.ndarray,
+                     cursor_host: np.ndarray,
+                     prev: Optional[PipeWindow]) -> PipeWindow:
+        """Propose one window, predict its verdict and post it. ``prev``
+        None: a window from the committed state (a recurrent draft takes
+        its checkpoint and optimistic advance at once); else a SPECULATIVE
+        window from ``prev``'s predicted verdict, proposed from the draft's
+        cursor while ``prev``'s verdict is in flight (its checkpoint waits
+        for that verdict: :meth:`_checkpoint` on a hit)."""
+        h = self._wire["host"]
+        t0 = time.perf_counter()
+        if prev is None:
+            self._segment(self._worker_step("propose"),
+                          after=[h["proposals"].fetch, h["anchor"].fetch])
+            last = h["anchor"].wait().copy()
+        else:
+            row = prev.pred_row
+            self._segment(self._worker_step("propose_spec"),
+                          before=[lambda: h["pred"].put(row)],
+                          after=[h["proposals"].fetch])
+            last = prev.last
+        tokens = h["proposals"].wait().copy()
+        max_new = np.array([rec.max_new if rec else 0 for rec in self._slots],
+                           np.int32)
+        num, done, last_opt = predict_verdict(tokens, last, gamma, done_host,
+                                              cursor_host, max_new,
+                                              self.eos_id)
+        rid = self._round_seq
+        self._round_seq += 1
+        win = PipeWindow(
+            msg=WindowMsg(tokens=tokens, gamma=gamma,
+                          n_active=int(done_host.size - done_host.sum()),
+                          q_probs=self._wire["linear"].q_probs, round_id=rid,
+                          speculative=prev is not None),
+            num_new=num, done=done, last=last_opt, draft_ms=0.0)
+        if prev is None:
+            self._checkpoint(win)
+        else:
+            self.speculative_windows += 1
+        win.draft_ms = (time.perf_counter() - t0) * 1e3
+        self.transport.post_window(win.msg)
+        return win
+
+    def _checkpoint(self, win: PipeWindow) -> None:
+        """A recurrent draft's optimistic advance over ``win`` (the window
+        just proposed): the pre-window state into the checkpoint, the window
+        into the record, the state advanced by the predicted counts. An
+        attention draft has nothing to do."""
+        if self.engine._draft_attention:
+            return
+        row = win.pred_row
+        h = self._wire["host"]
+        self._segment(self._worker_step("checkpoint"),
+                      before=[lambda: h["pred"].put(row)])
+
+    def _run_chunk_pipeline(self, policy, max_iters: Optional[int],
+                            q_depth: float) -> int:
+        """Up to ``sync_every`` CROSS-ROUND PIPELINED rounds over the
+        transport (the reference's ``_run_chunk_pipeline``): the target
+        verifies window k and posts its verdict; while the verdict flies the
+        draft decides the next γ and posts window k+1, proposed from its
+        prediction of that verdict (:meth:`_make_window`). The verdict the
+        draft receives resolves it: a HIT (num_new, done and last_token as
+        predicted) keeps window k+1 as the next round's window — its verify
+        starts without waiting for a draft scan and an upload; a MISS
+        discards it unverified (``discard_window``) and rolls a recurrent
+        draft back (an attention draft's stale tail is masked by position),
+        and the next round re-proposes with the discarded window's γ. A
+        fused decision runs unpipelined. Speculation never crosses a chunk
+        boundary, so admission and retirement never invalidate a window in
+        flight."""
+        n = self.sync_every
+        if max_iters is not None:
+            n = min(n, max_iters - self.iterations)
+        if n <= 0 or not self.occupied:
+            return 0
+        self._wire_init()
+        tr = self.transport
+        chunk_t0 = time.perf_counter()
+        chunk_gammas: list[int] = []
+        link_ms = draft_ms = 0.0
+        done_host = np.array([rec is None or rec.done for rec in self._slots])
+        cursor_host = np.array([rec.produced if rec else 0
+                                for rec in self._slots], np.int32)
+        it_run = 0
+        pending: Optional[PipeWindow] = None   # posted, verdict outstanding
+        carry = None          # (γ, fused) decided during the last flight
+        while it_run < n and not done_host.all():
+            if pending is None:
+                gamma, fused = (carry if carry is not None
+                                else self._decide(policy, q_depth))
+                carry = None
+                if fused:
+                    rows, ms = self._fused_round(it_run)
+                    link_ms += ms
+                    done_host = rows[4].astype(bool)
+                    cursor_host = cursor_host + rows[1]
+                    chunk_gammas.append(0)
+                    self.iterations += 1
+                    it_run += 1
+                    continue
+                pending = self._make_window(gamma, done_host, cursor_host,
+                                            None)
+                draft_ms += pending.draft_ms
+
+            # -- target: receive and verify the window in flight -----------
+            got, waited = tr.recv_window()
+            link_ms += waited
+            self._check_window(got, pending.msg)
+            tr.post_verdict(self._verify(got, it_run))
+
+            # -- draft: speculate window k+1 while the verdict flies -------
+            spec = None
+            if it_run + 1 < n and not pending.done.all():
+                gamma2, fused2 = self._decide(policy, q_depth)
+                if fused2:
+                    carry = (gamma2, fused2)      # fused runs unpipelined
+                else:
+                    spec = self._make_window(gamma2, pending.done,
+                                             cursor_host + pending.num_new,
+                                             pending)
+                    draft_ms += spec.draft_ms
+
+            # -- draft: the verdict it received resolves the speculation ---
+            verdict, waited = tr.recv_verdict()
+            link_ms += waited
+            if verdict.round_id != got.round_id:
+                raise TransportProtocolError(
+                    f"received verdict {verdict.round_id}, sent "
+                    f"{got.round_id}")
+            hit = (np.array_equal(verdict.num_new, pending.num_new)
+                   and np.array_equal(verdict.done, pending.done)
+                   and np.array_equal(verdict.last_token, pending.last))
+            self._pipe_recent.append(1.0 if hit else 0.0)
+            if hit:
+                self.pipeline_hits += 1
+            else:
+                self.pipeline_misses += 1
+                if not self.engine._draft_attention:
+                    from ..distributed.workers import DraftWindow
+                    img = self._wire["host"]["record"]
+                    DraftWindow.pack_received(verdict, img.np)
+                    self._segment(self._worker_step("rollback"),
+                                  before=[lambda: img.put(img.np)])
+            done_host = np.asarray(verdict.done, bool)
+            cursor_host = cursor_host + verdict.num_new
+            chunk_gammas.append(got.gamma)
+            self.iterations += 1
+            it_run += 1
+            if hit and spec is not None:
+                t0 = time.perf_counter()
+                self._checkpoint(spec)
+                draft_ms += (time.perf_counter() - t0) * 1e3
+                pending = spec                    # the speculative window
+            else:                                 # is the next round's
+                if spec is not None:
+                    # the late verdict invalidated it; the re-proposal
+                    # reuses its γ decision (made before the verdict: that
+                    # is what pipelining means), keeping policy calls and
+                    # gamma_seq one per committed round
+                    tr.discard_window()
+                    carry = (spec.msg.gamma, False)
+                pending = None
+        if carry is not None:
+            # a decision for a round that never ran (the batch drained or
+            # the chunk ended first): unwind its bookkeeping
+            if carry[1]:
+                self.fused_iterations -= 1
+            else:
+                self.gamma_sum -= carry[0]
+                self.gamma_rounds -= 1
+            if self.log_gamma and self.gamma_seq:
+                self.gamma_seq.pop()
+        if it_run == 0:
+            return 0
+        if self._fused_pending and done_host.all():
+            link_ms += self._flush()
+            self._fused_pending = 0
+        self.link_ms += link_ms
+        del self._pipe_recent[:-16]
         self._sync_and_attribute(
             it_run, chunk_gammas, chunk_t0,
             non_target_ms=draft_ms + (link_ms if tr.wall_clock else 0.0),
@@ -1021,6 +1405,7 @@ class DecodeSession:
     def _features(self, q_depth: float) -> FeatureSnapshot:
         a = self._alpha_recent[-16:]
         t = self._tpot_recent[-16:]
+        p = self._pipe_recent[-16:]
         rtt = (self.transport.recent_rtt_ms if self.transport is not None
                else self.engine.rtt_ms)
         return FeatureSnapshot(
@@ -1029,7 +1414,11 @@ class DecodeSession:
             rtt_recent_ms=rtt,
             tpot_recent_ms=(sum(t) / len(t)) if t else 50.0,
             gamma_prev=self._gamma_prev,
-            pipe_hit_recent=0.0, branches_prev=self._branches_prev)
+            # outside pipeline mode no RTT is overlapped: 0 keeps the
+            # bootstrap's overlapped-RTT term inert
+            pipe_hit_recent=((sum(p) / len(p)) if p else 0.0)
+            if self.mode_policy == "pipeline" else 0.0,
+            branches_prev=self._branches_prev)
 
     # ------------------------------------------------------------ retirement
 

@@ -9,8 +9,9 @@ them — zero-delay in process (the exactness anchor), over an emulated
 edge–cloud link whose measured delays feed the AWC window policy's
 ``rtt_recent_ms`` feature, or over framed TCP streams. The wire codecs
 and frames are the reference's byte for byte. A ``DecodeSession`` given a
-transport runs its rounds half-duplex over it; the pipelined mode and the
-worker hosts (``host.py``) come with the next slices of ROADMAP A9.
+transport runs its rounds over it, half-duplex or pipelined
+(``mode_policy="pipeline"``); :mod:`.host` runs each side of a pair in a
+worker process of its own (``python -m repro_torch.distributed.host``).
 """
 
 from .socket_transport import (FRAME_CONTROL, FRAME_VERDICT, FRAME_WINDOW,

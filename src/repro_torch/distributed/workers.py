@@ -8,8 +8,12 @@ splits it at exactly the points where bytes cross the network:
 - :class:`DraftWorker` (edge) owns the draft model: ``propose`` (the
   γ_max-wide proposal loop), ``propose_tree`` (the (d_max, b_max) grid),
   ``ingest_tree`` (the winning path relocated onto the draft's linear
-  slots), ``ingest`` (one committed token of a fused round) and
-  ``advance`` (a recurrent draft re-advanced over the committed prefix).
+  slots), ``ingest`` (one committed token of a fused round), ``advance``
+  (a recurrent draft re-advanced over the committed prefix), and the
+  pipelined mode's ``checkpoint`` and ``rollback`` (a recurrent draft's
+  optimistic advance and its undoing; ``advance`` with a state copy on
+  either side, so no step key of their own, as the reference compiles no
+  program for them).
 - :class:`TargetWorker` (cloud) owns the target model: ``verify_commit``
   and ``verify_commit_tree``, the target half of the colocated linear and
   tree steps (:func:`~repro_torch.core.specdec.verify_proposal` and
@@ -45,6 +49,7 @@ import torch
 
 from ..core.engine import (_commit, _copy_recurrent_, _scan_cache_advance,
                            _tree_where)
+from ..models.kvcache import HybridCacheT, SSMCache
 from ..core.specdec import draft_propose, verify_proposal
 from ..core.tree import tree_propose
 from ..models.kvcache import tree_commit_cache
@@ -108,6 +113,19 @@ class DraftWindow:
         out[B:2 * B] = msg.num_new
         if msg.path is not None:
             out[2 * B:] = np.asarray(msg.path, np.int32).reshape(-1)
+
+
+def recurrent_clone(cache):
+    """A checkpoint of a draft cache's recurrent leaves (ssm conv and
+    state; a hybrid's shared attention cache is not copied: positions
+    roll it back). :func:`~repro_torch.core.engine._copy_recurrent_` moves
+    state between the two."""
+    if isinstance(cache, HybridCacheT):
+        return HybridCacheT(ssm=recurrent_clone(cache.ssm),
+                            shared_attn=cache.shared_attn)
+    if isinstance(cache, SSMCache):
+        return SSMCache(conv=cache.conv.clone(), state=cache.state.clone())
+    raise TypeError(f"no recurrent state in a {type(cache).__name__}")
 
 
 class VerdictBuffer:
@@ -266,6 +284,40 @@ class DraftWorker:
             adv = torch.cat([win.anchor[:, None], win.tokens], dim=1)
             _scan_cache_advance(decode, self.params, cache, adv, win.pos,
                                 win.num_new)
+
+        return fn
+
+
+    def checkpoint(self, gamma_max: int):
+        """``fn(cache, ckpt, win: DraftWindow, rec: DraftWindow, num_new)``:
+        the pipelined mode's optimistic advance of a recurrent draft over
+        the window ``win`` just proposed: the window-start recurrent state
+        into ``ckpt`` (:func:`recurrent_clone`), the window (anchor,
+        proposals, start) and the predicted ``num_new`` into ``rec``, then
+        :meth:`advance` over ``rec``. ``win`` may then take the speculative
+        window while ``rec`` keeps this one for :meth:`rollback`."""
+        adv = self.advance(gamma_max)
+
+        def fn(cache, ckpt, win: DraftWindow, rec: DraftWindow,
+               num_new) -> None:
+            _copy_recurrent_(ckpt, cache)
+            rec.anchor.copy_(win.anchor)
+            rec.tokens.copy_(win.tokens)
+            rec.pos.copy_(win.pos)
+            rec.num_new.copy_(num_new)
+            adv(cache, rec)
+
+        return fn
+
+    def rollback(self, gamma_max: int):
+        """``fn(cache, ckpt, rec: DraftWindow)``: undo :meth:`checkpoint` on
+        a miss: restore the window-start state from ``ckpt`` and re-advance
+        over ``rec`` by the received verdict in ``rec.received``."""
+        adv = self.advance(gamma_max)
+
+        def fn(cache, ckpt, rec: DraftWindow) -> None:
+            _copy_recurrent_(cache, ckpt)
+            adv(cache, rec)
 
         return fn
 

@@ -17,6 +17,10 @@ use with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface, which is loaded with ``ctypes`` (one ``nvcc`` process per source,
 all started together, then one link). The library is keyed by a hash of the
 sources, so a changed source rebuilds and an unchanged one loads at once.
+Processes that build at once (the worker hosts of a deployment on one card)
+are safe: a build holds an ``fcntl`` lock on the build directory while it
+compiles and links, and renames the finished library into place; a process
+that waited on the lock finds the library built and loads it.
 
 The device rule: a kernel wrapper given CPU tensors runs the kernel's plain
 PyTorch version (that is what the CPU tests exercise); given CUDA tensors it
@@ -28,6 +32,7 @@ plain version. Every launch adds one to the wrapper's entry in
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -106,7 +111,9 @@ def _nvcc() -> str:
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link the
     shared library; returns its path. A no-op when the library for the
-    current sources' hash already exists."""
+    current sources' hash already exists. Builds in several processes at
+    once serialize on a lock on ``build_dir``: the first builds, the others
+    wait and find its library."""
     srcs = _sources()
     h = hashlib.sha256()
     for p in srcs:
@@ -119,6 +126,21 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         BUILD_LOG.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
     build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():          # built while this process waited
+            BUILD_LOG.update(path=str(lib_path), seconds=0.0, cached=True)
+            return lib_path
+        _compile_and_link(srcs, tag, build_dir, lib_path)
+    return lib_path
+
+
+def _compile_and_link(srcs, tag: str, build_dir: Path,
+                      lib_path: Path) -> None:
+    """The objects in ``build_dir`` (the caller holds its lock), the
+    library linked under this process's own name, then renamed to
+    ``lib_path`` in one step, so no reader ever maps a partial file; the
+    objects are removed once linked."""
     nvcc = _nvcc()
     t0 = time.perf_counter()
     objs, procs = [], []
@@ -147,9 +169,10 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
     os.replace(tmp, lib_path)
+    for obj in objs:
+        obj.unlink()
     BUILD_LOG.update(path=str(lib_path), seconds=time.perf_counter() - t0,
                      cached=False, ptxas=logs)
-    return lib_path
 
 
 _P = ctypes.c_void_p

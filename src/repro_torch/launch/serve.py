@@ -1,50 +1,69 @@
 """Serving launcher of the PyTorch port: edge-draft + cloud-target
-speculative decoding with the paper's window policies on the continuous
-slot-based scheduler, one draft–target pair colocated on one device.
+speculative decoding with the paper's window policies, on the continuous
+slot-based scheduler (default) or the wave-batched baseline.
+
+TOPOLOGY-FIRST, as the reference launcher (``repro/launch/serve.py``): the
+real input is a :class:`repro_torch.topology.ClusterSpec` — nodes,
+draft→target pairs with per-pair links/window/mode policies, serving knobs,
+workload:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --topology examples/cluster_2pair.json [--requests 8] [--json]
+
+The one-pair flags compile to an equivalent spec through
+:func:`repro_torch.topology.one_pair_spec` and the same
+:func:`~repro_torch.topology.build_deployment`:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --target qwen3-14b --draft qwen2.5-3b --policy awc \
-        --requests 8 --max-new 32 [--arrival-rate 8] [--temperature 0.0] \
-        [--paged-kv] [--full-size] [--device cuda|cpu] [--no-capture]
-        [--link-rtt-ms 15 [--link-jitter-ms 1] [--link-bw-gbps 1]]
-        [--mode-policy auto|distributed|fused] [--json]
+        --requests 8 --max-new 32 [--server continuous|wave] \
+        [--arrival-rate 8] [--temperature 0.0] [--paged-kv] [--full-size] \
+        [--device cuda|cpu] [--no-capture] \
+        [--link-rtt-ms 15 [--link-jitter-ms 1] [--link-bw-gbps 1]] \
+        [--mode-policy auto|distributed|fused|pipeline] [--json]
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --target zamba2-1.2b --draft mamba2-130m --full-size
 
-The flags are the reference launcher's one-pair surface that the port
-runs (``repro/launch/serve.py``), plus ``--device`` (the card by default),
-``--paged-kv``/``--kv-pool-blocks`` (the serving config's paged pool) and
-``--full-size``. On the card every session step is captured once as a
-CUDA graph and replayed (``captured_graphs`` 2 for a continuous server:
-one round step, one insert; ``graph_replays`` = rounds + admissions − the
-two warm-ups); ``--no-capture`` runs them eagerly for comparison.
-``--target``/``--draft`` take any name of the config zoo
-whose family the port runs: dense (qwen, llama2, deepseek, command-r), ssm
-(mamba2-130m) and hybrid (zamba2-1.2b); a pair with an ssm or hybrid side
-runs the engine's split step (verify from the window-start state, then
-re-advance it over the accepted tokens). ``--paged-kv`` pages only the
-attention-family sides (a hybrid's shared attention stays dense) and
-refuses a pair with none. Reduced same-family configs by default, as the
-reference launcher; ``--full-size`` serves the published widths and
-depths in their published dtype (the reference's
-``build_deployment(reduced=False)``).
-Weights are random, drawn on the device from ``--seed``. ``--arrival-rate``
-draws Poisson arrivals (requests/s); TTFT and e2e include queue wait.
-``--temperature`` > 0 samples (the sampled verify runs kernels B3 every
-round); the sessions seed their generators as the reference's do (0).
+Beside the reference's flags the port has ``--device`` (the card by
+default), ``--paged-kv``/``--kv-pool-blocks`` (the serving config's paged
+pool), ``--no-capture`` and ``--full-size`` (the published widths and
+depths in their published dtype: ``build_deployment(reduced=False)``;
+reduced same-family configs otherwise). Weights are random, drawn on the
+device per node from the spec's seed (``--seed``;
+:func:`repro_torch.topology.node_seed`: a one-pair spec's draft from
+``seed``, its target from ``seed + 1``). ``--target``/``--draft`` take any
+config of the zoo whose family the port runs: dense (qwen, llama2,
+deepseek, command-r), ssm (mamba2-130m) and hybrid (zamba2-1.2b); a pair
+with an ssm or hybrid side runs the engine's split step. ``--paged-kv``
+pages only the attention-family sides and refuses a pair with none.
+``--arrival-rate`` draws Poisson arrivals (requests/s); TTFT and e2e
+include queue wait. ``--temperature`` > 0 samples (kernels B3 every
+round).
+
+On the card every session step is captured once as a CUDA graph and
+replayed (``captured_graphs`` 2 for a colocated continuous server: one
+round step, one insert; ``graph_replays`` = rounds + admissions − the two
+warm-ups); ``--no-capture`` runs them eagerly for comparison.
 
 ``--link-rtt-ms`` splits the pair at the wire: the rounds run as
-half-duplex draft→verify→verdict exchanges between the engine's split
-workers over a transport — 0 is the zero-delay in-process transport, more
-is an emulated edge–cloud link of that RTT, ``--link-jitter-ms`` jitter and
+draft→verify→verdict exchanges between the engine's split workers over a
+transport — 0 is the zero-delay in-process transport, more is an emulated
+edge–cloud link of that RTT, ``--link-jitter-ms`` jitter and
 ``--link-bw-gbps`` bandwidth (wall-clock sleeps of the sampled delays; the
-summary's ``link_recent_rtt_ms`` is the measured RTT). On the card every
-worker program is captured once and replayed (``captured_graphs``: insert,
-propose, verify; + advance for an ssm draft; + ingest once a fused round
-ran). ``--mode-policy`` honors the window policy's fused/distributed
-decision (auto) or forces one mode; the pipelined mode comes with the next
-slice of ROADMAP A9. Topologies and the wave server come with A13.
+summary's ``link_recent_rtt_ms`` is the measured RTT). ``--mode-policy``
+honors the window policy's fused/distributed decision (auto), forces one
+mode, or (``pipeline``, which needs a link) honors it and overlaps window
+k+1's draft with window k's verdict; the pair's ``pipeline_hits``/
+``pipeline_misses`` show in ``pairs``. Captured worker steps: insert,
+propose, verify (+ advance for an ssm draft, + ingest once a fused round
+ran); pipelined: insert, propose, speculative propose, verify (+
+checkpoint and rollback for an ssm draft).
+
+A topology with ``process: true`` pairs spawns two worker hosts per pair
+(:mod:`repro_torch.distributed.host`, on ``--device``); the summary's
+``pairs`` then carry each host pair's row. ``--server wave`` serves the
+single colocated pair wave by wave (the measured baseline).
 """
 
 from __future__ import annotations
@@ -52,29 +71,36 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import numpy as np
 
-from ..configs import ARCHS, get_config
-from ..core.engine import SpecDecodeEngine
-from ..core.window import make_window_policy
-from ..distributed import make_transport
-from ..serving import ServeRequest, ServerConfig, SpecDecodeServer
-from ..sim.network import LinkSpec
+from ..configs import ARCHS
+from ..serving import ServeRequest
+from ..topology import ClusterSpec, build_deployment, one_pair_spec
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--topology", default=None, metavar="cluster.json",
+                    help="declarative ClusterSpec (nodes + draft→target "
+                         "pairs with per-pair links/policies); replaces "
+                         "the one-pair flags below")
     ap.add_argument("--target", default="qwen3-14b", choices=sorted(ARCHS))
     ap.add_argument("--draft", default="qwen2.5-3b", choices=sorted(ARCHS))
     ap.add_argument("--policy", default="static",
                     choices=["static", "dynamic", "awc"])
     ap.add_argument("--gamma", type=int, default=4)
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=None,
+                    help="request count (default: topology workload, or 8)")
+    ap.add_argument("--max-new", type=int, default=None,
+                    help="tokens per request (default: topology workload, "
+                         "or 32)")
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--arrival-rate", type=float, default=0.0,
+    ap.add_argument("--server", default="continuous",
+                    choices=["continuous", "wave"],
+                    help="continuous slot scheduler vs wave-batched baseline")
+    ap.add_argument("--arrival-rate", type=float, default=None,
                     help="Poisson arrivals per second (0 = all at t=0)")
     ap.add_argument("--rtt-ms", type=float, default=10.0,
                     help="virtual RTT charged by the colocated path "
@@ -90,8 +116,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--mode-policy", default="auto",
                     choices=["auto", "distributed", "fused", "pipeline"],
                     help="honor the window policy's fused/distributed "
-                         "decision (auto) or force one mode; 'pipeline' is "
-                         "refused (the next slice of ROADMAP A9)")
+                         "decision (auto) or force one mode; 'pipeline' "
+                         "honors the decision AND overlaps window k+1's "
+                         "draft with window k's verdict (needs "
+                         "--link-rtt-ms)")
     ap.add_argument("--gamma-max", type=int, default=12,
                     help="window width of the step; any policy γ ≤ this "
                          "runs the same step")
@@ -114,94 +142,126 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def spec_from_args(args) -> ClusterSpec:
+    """``--topology`` loads the file (workload flags passed explicitly
+    override its workload section); otherwise the one-pair flags map to
+    :func:`one_pair_spec`."""
+    if args.topology:
+        spec = ClusterSpec.load(args.topology)
+    else:
+        spec = one_pair_spec(
+            target=args.target, draft=args.draft, policy=args.policy,
+            gamma=args.gamma, gamma_max=args.gamma_max,
+            max_batch=args.max_batch, sync_every=args.sync_every,
+            temperature=args.temperature, rtt_ms=args.rtt_ms,
+            link_rtt_ms=args.link_rtt_ms,
+            link_jitter_ms=args.link_jitter_ms,
+            link_bw_gbps=args.link_bw_gbps, mode_policy=args.mode_policy,
+            server=args.server, seed=args.seed)
+    if args.requests is not None:
+        spec.workload.num_requests = args.requests
+    if args.max_new is not None:
+        spec.workload.max_new = args.max_new
+    if args.arrival_rate is not None:
+        spec.workload.rate_per_s = args.arrival_rate
+    return spec.validate()
+
+
 @dataclass
 class ServeRun:
     summary: dict
     results: list          # list[ServeResult], in retirement order
-    server: SpecDecodeServer
+    server: object         # SpecDecodeServer | WaveSpecDecodeServer
     requests: list         # list[ServeRequest], in submission order
+    deployment: object     # repro_torch.topology.Deployment
 
 
-def run(argv=None) -> ServeRun:
-    """Build the pair, serve the generated request stream, summarize."""
+def run(argv=None, *, node_params=None) -> ServeRun:
+    """Build the deployment, serve the generated request stream,
+    summarize; the worker hosts of process-backed pairs are stopped before
+    this returns. ``node_params`` (node id → port params) replaces the
+    weights drawn from the seed, as in
+    :func:`~repro_torch.topology.build_deployment`."""
     args = parse_args(argv)
-    if args.mode_policy == "pipeline":
-        raise SystemExit("--mode-policy pipeline: the pipelined mode is the "
-                         "next slice of ROADMAP A9")
-    raw = {}
-    for role, name in (("draft", args.draft), ("target", args.target)):
-        cfg = get_config(name)
-        raw[role] = cfg if args.full_size else cfg.reduced()
-    # one tokenizer: the vocabularies unify to the smaller one
-    vocab = min(c.vocab for c in raw.values())
-    cfgs = {r: (c if c.vocab == vocab else replace(c, vocab=vocab))
-            for r, c in raw.items()}
-    engine = SpecDecodeEngine(cfgs["draft"], cfgs["target"], seed=args.seed,
-                              temperature=args.temperature,
-                              rtt_ms=args.rtt_ms, gamma_max=args.gamma_max,
-                              sync_every=args.sync_every, device=args.device)
-    policy = make_window_policy(args.policy, gamma=args.gamma)
-    transport = make_transport(
-        None if args.link_rtt_ms is None else LinkSpec(
-            rtt_ms=args.link_rtt_ms, jitter_ms=args.link_jitter_ms,
-            bandwidth_gbps=args.link_bw_gbps), seed=args.seed)
-    server = SpecDecodeServer(engine, policy, ServerConfig(
-        max_batch=args.max_batch, sync_every=args.sync_every,
-        paged_kv=args.paged_kv, kv_pool_blocks=args.kv_pool_blocks,
-        capture=False if args.no_capture else None, transport=transport,
-        mode_policy=args.mode_policy))
+    if args.link_rtt_ms is not None and args.server == "wave":
+        raise SystemExit("--link-rtt-ms needs the continuous server "
+                         "(the wave baseline is colocated-only)")
+    if args.mode_policy == "pipeline" and args.link_rtt_ms is None \
+            and not args.topology:
+        raise SystemExit("--mode-policy pipeline overlaps rounds across a "
+                         "transport; pass --link-rtt-ms (0 = in-process)")
+    spec = spec_from_args(args)
+    deployment = build_deployment(spec, reduced=not args.full_size,
+                                  device=args.device,
+                                  node_params=node_params)
+    try:
+        server = deployment.build_server(
+            paged_kv=args.paged_kv, kv_pool_blocks=args.kv_pool_blocks,
+            capture=False if args.no_capture else None)
+        wl = spec.workload
+        rng = np.random.default_rng(spec.seed)
+        arrival = 0.0
+        requests = []
+        for i in range(wl.num_requests):
+            plen = int(rng.integers(wl.prompt_lo, wl.prompt_hi))
+            if wl.rate_per_s > 0:
+                arrival += float(rng.exponential(1.0 / wl.rate_per_s))
+            requests.append(ServeRequest(
+                i, rng.integers(0, deployment.vocab, plen).astype(np.int32),
+                wl.max_new, arrival_s=arrival))
+            server.submit(requests[-1])
+        t0 = time.perf_counter()
+        results = server.run()
+        wall = time.perf_counter() - t0
+    finally:
+        # the hosts' last wave stats stay cached on their handles, so the
+        # summaries below still read
+        deployment.shutdown()
 
-    rng = np.random.default_rng(args.seed)
-    arrival = 0.0
-    requests = []
-    for i in range(args.requests):
-        plen = int(rng.integers(8, 48))
-        if args.arrival_rate > 0:
-            arrival += float(rng.exponential(1.0 / args.arrival_rate))
-        requests.append(ServeRequest(
-            i, rng.integers(0, vocab, plen).astype(np.int32), args.max_new,
-            arrival_s=arrival))
-        server.submit(requests[-1])
-    t0 = time.perf_counter()
-    results = server.run()
-    wall = time.perf_counter() - t0
-
+    engines = list({id(p.engine): p.engine for p in deployment.pairs
+                    if p.engine is not None}.values())
+    pairs = (server.pair_summaries() if hasattr(server, "pair_summaries")
+             else {})
     tokens = int(sum(len(r.tokens) for r in results))
-    pairs = server.pair_summaries()
+    cfgs = deployment.node_configs
+    p0 = spec.pairs[0]
     summary = {
-        "server": "continuous",
-        "device": str(engine.device),
-        "target": cfgs["target"].name,
-        "draft": cfgs["draft"].name,
-        "policy": args.policy,
-        "temperature": args.temperature,
+        "server": spec.serving.server,
+        "topology": args.topology or "one-pair(flags)",
+        "pairs_deployed": len(deployment.pairs),
+        "device": str(engines[0].device) if engines else args.device,
+        "target": cfgs[p0.target].name,
+        "draft": cfgs[p0.draft].name,
+        "temperature": spec.serving.temperature,
         "paged_kv": bool(args.paged_kv),
         "requests": len(results),
         "tokens": tokens,
         "wall_s": wall,
         "tokens_per_s": tokens / wall if wall > 0 else 0.0,
-        "iterations": sum(d["iterations"] for d in pairs.values()),
+        "iterations": sum(d.get("iterations", 0) for d in pairs.values()),
         "mean_acceptance": float(np.mean([r.acceptance_rate
                                           for r in results])),
         "mean_ttft_ms": float(np.mean([r.ttft_ms for r in results])),
         "mean_queue_ms": float(np.mean([r.queue_ms for r in results])),
         "mean_tpot_ms": float(np.mean([r.tpot_ms for r in results])),
         "mean_e2e_ms": float(np.mean([r.e2e_ms for r in results])),
-        "step_programs": engine.step_programs(),
-        "captured_graphs": engine.graphs.captured,
-        "graph_replays": engine.graphs.replays,
-        "graph_warm_ups": engine.graphs.warm_ups,
+        "step_programs": sum(e.step_programs() for e in engines),
+        "captured_graphs": sum(e.graphs.captured for e in engines),
+        "graph_replays": sum(e.graphs.replays for e in engines),
+        "graph_warm_ups": sum(e.graphs.warm_ups for e in engines),
         "pairs": pairs,
     }
-    if transport is not None:
-        # the reference launcher's flat link keys
+    if not args.topology:
+        summary["policy"] = args.policy
+    tr = deployment.pairs[0].transport
+    if len(deployment.pairs) == 1 and tr is not None:
+        # the one-pair launcher's flat link keys
         summary.update(
-            transport=transport.describe(), mode_policy=args.mode_policy,
-            link_bytes_sent=transport.bytes_sent,
-            link_messages=transport.messages_sent,
-            link_recent_rtt_ms=round(transport.recent_rtt_ms, 3))
+            transport=tr.describe(), mode_policy=p0.mode_policy,
+            link_bytes_sent=tr.bytes_sent, link_messages=tr.messages_sent,
+            link_recent_rtt_ms=round(tr.recent_rtt_ms, 3))
     return ServeRun(summary=summary, results=results, server=server,
-                    requests=requests)
+                    requests=requests, deployment=deployment)
 
 
 def main(argv=None) -> int:
@@ -210,7 +270,16 @@ def main(argv=None) -> int:
     if args.json:
         print(json.dumps(s, indent=1))
     else:
+        per_pair = ""
+        if s["pairs_deployed"] > 1:
+            per_pair = "  " + "  ".join(
+                f"[{pid}: n={d['requests']} acc="
+                f"{d.get('acceptance_rate', 0.0):.2f}"
+                + (f" γ={d['mean_gamma']:.2f}" if "mean_gamma" in d
+                   else " process") + "]"
+                for pid, d in s["pairs"].items())
         print(f"served {s['requests']} requests on {s['device']}  "
+              f"server={s['server']}  pairs={s['pairs_deployed']}  "
               f"tokens={s['tokens']}  tok/s={s['tokens_per_s']:.1f}  "
               f"acceptance={s['mean_acceptance']:.3f}  "
               f"ttft={s['mean_ttft_ms']:.1f}ms  "
@@ -221,7 +290,7 @@ def main(argv=None) -> int:
               + (f"  link={s['transport']} rtt="
                  f"{s['link_recent_rtt_ms']:.2f}ms "
                  f"messages={s['link_messages']}" if "transport" in s
-                 else ""))
+                 else "") + per_pair)
     return 0
 
 

@@ -16,12 +16,21 @@ Per-request metrics include queue wait: TTFT runs from the request's own
 token payloads come from the per-sequence cursor.
 
 A pair with a ``transport`` (a :class:`repro_torch.distributed.Transport`)
-runs its rounds as half-duplex draft→verify→verdict exchanges over it;
+runs its rounds as draft→verify→verdict exchanges over it (half-duplex, or
+pipelined with ``mode_policy="pipeline"``);
 :meth:`SpecDecodeServer.pair_summaries` then reports its link (bytes,
-messages, measured RTT, unhidden link ms).
+messages, measured RTT, unhidden link ms) and its pipeline hits and misses.
 
-SLO-aware admission, process-backed pairs, the smart router and the wave
-baseline come with ROADMAP item A13.
+A **process-backed** pair (``PairSpec.process``) has no engine here: its
+``host`` (:class:`repro_torch.distributed.host.PairHostHandle`) drives a
+draft and a target worker process over a socket transport, and the server
+hands it the pair's share of the stream on a thread of its own, wave by
+wave (:meth:`SpecDecodeServer._run_process_backed`).
+
+:class:`WaveSpecDecodeServer` keeps the wave-batched execution model (admit
+a wave, drain it, admit the next) as the measured baseline.
+
+SLO-aware admission and the smart router come with ROADMAP item A13.
 """
 
 from __future__ import annotations
@@ -60,15 +69,47 @@ class ServeResult:
     pair_id: str = ""            # draft–target pair that served the request
 
 
+def pool_geometry(cfg: ServerConfig, pending: Sequence[ServeRequest]
+                  ) -> tuple[int, int, int]:
+    """(slots, output width, prompt pad bound) of a session serving
+    ``pending``: the config's values, else the queue's maxima (the pad
+    bound rounded up to ``pad_to``)."""
+    q = cfg.pad_to
+    mp = cfg.max_prompt_len or max(len(r.prompt) for r in pending)
+    cap = cfg.max_new_cap or max(r.max_new_tokens for r in pending)
+    return cfg.max_batch, cap, ((mp + q - 1) // q) * q
+
+
+def pool_session(cfg: ServerConfig, pair: "ServingPair",
+                 geom: tuple[int, int, int]) -> DecodeSession:
+    """A persistent slot-pool session of ``geom`` for one pair."""
+    eng = pair.engine
+    return DecodeSession(eng, capacity=geom[0], max_new_cap=geom[1],
+                         max_prompt_len=geom[2],
+                         gamma_max=eng.gamma_max
+                         or eng._policy_gamma_bound(pair.policy),
+                         sync_every=cfg.sync_every, eos_id=cfg.eos_id,
+                         log_gamma=False, mode_policy=pair.mode_policy,
+                         transport=pair.transport, pair_key=pair.pair_id,
+                         paged=cfg.paged_kv, kv_block_size=cfg.kv_block_size,
+                         kv_pool_blocks=cfg.kv_pool_blocks,
+                         kv_quantize=cfg.kv_quantize, capture=cfg.capture)
+
+
 @dataclass
 class ServingPair:
     """One deployed draft→target lane: engine + window policy + mode.
-    ``pair_id`` doubles as the window policy's pair key."""
+    ``pair_id`` doubles as the window policy's pair key. A process-backed
+    pair carries no engine or transport: ``host`` (a
+    :class:`repro_torch.distributed.host.PairHostHandle`) serves its share
+    of the stream."""
     pair_id: str
-    engine: SpecDecodeEngine
+    engine: Optional[SpecDecodeEngine]
     policy: WindowPolicy
     transport: Optional[object] = None   # repro_torch.distributed.Transport
-    mode_policy: str = "auto"            # auto | distributed | fused
+    mode_policy: str = "auto"            # auto | distributed | fused |
+                                         # pipeline
+    host: Optional[object] = None        # distributed.host.PairHostHandle
     session: Optional[DecodeSession] = None  # live session, set by run()
     draining: bool = False               # drained pairs admit nothing new
 
@@ -215,6 +256,13 @@ class SpecDecodeServer:
             assert len(pairs) >= 1, "a deployment needs at least one pair"
             ids = [p.pair_id for p in pairs]
             assert len(set(ids)) == len(ids), f"duplicate pair ids: {ids}"
+        hosted = [p.host is not None for p in pairs]
+        assert all(hosted) or not any(hosted), \
+            "process-backed and in-process pairs cannot mix in one server"
+        assert all(p.engine is not None or p.host is not None
+                   for p in pairs), \
+            "every pair needs an engine (in-process) or a host (process)"
+        self._process_backed = any(hosted)
         self.pairs = list(pairs)
         self.router = router or LeastLoadedPairRouter()
         self.engine = self.pairs[0].engine
@@ -262,28 +310,6 @@ class SpecDecodeServer:
 
     # -- serve loop ----------------------------------------------------------
 
-    def _make_session(self, pair: ServingPair,
-                      pending: list[ServeRequest]) -> DecodeSession:
-        q = self.cfg.pad_to
-        mp = self.cfg.max_prompt_len or max(len(r.prompt) for r in pending)
-        mp = ((mp + q - 1) // q) * q
-        cap = self.cfg.max_new_cap or max(r.max_new_tokens for r in pending)
-        eng = pair.engine
-        gmax = eng.gamma_max or eng._policy_gamma_bound(pair.policy)
-        return DecodeSession(eng, capacity=self.cfg.max_batch,
-                             max_new_cap=cap, max_prompt_len=mp,
-                             gamma_max=gmax,
-                             sync_every=self.cfg.sync_every,
-                             eos_id=self.cfg.eos_id, log_gamma=False,
-                             mode_policy=pair.mode_policy,
-                             transport=pair.transport,
-                             pair_key=pair.pair_id,
-                             paged=self.cfg.paged_kv,
-                             kv_block_size=self.cfg.kv_block_size,
-                             kv_pool_blocks=self.cfg.kv_pool_blocks,
-                             kv_quantize=self.cfg.kv_quantize,
-                             capture=self.cfg.capture)
-
     def run(self) -> list[ServeResult]:
         """Drain the submitted stream; returns per-request results.
 
@@ -294,9 +320,12 @@ class SpecDecodeServer:
         flight the loop idles to the next arrival."""
         if not self.queue:
             return self.results
+        if self._process_backed:
+            return self._run_process_backed()
         pending = sorted(self.queue, key=lambda r: r.arrival_s)
         self.queue = []
-        sessions = [self._make_session(p, pending) for p in self.pairs]
+        geom = pool_geometry(self.cfg, pending)
+        sessions = [pool_session(self.cfg, p, geom) for p in self.pairs]
         self._sessions = sessions
         for pair, sess in zip(self.pairs, sessions):
             pair.session = sess
@@ -368,17 +397,60 @@ class SpecDecodeServer:
                         pair_id=self.pairs[idx].pair_id))
         return self.results
 
+    def _run_process_backed(self) -> list[ServeResult]:
+        """Drive process-backed pairs CONCURRENTLY: each pair's host handle
+        serves its round-robin share of the stream on its own thread, so
+        the pairs' worker processes decode in parallel. Wave batching per
+        pair (the continuous chunk scheduler needs an in-process
+        session)."""
+        import threading
+
+        pending = sorted(self.queue, key=lambda r: r.arrival_s)
+        self.queue = []
+        buckets: list[list[ServeRequest]] = [[] for _ in self.pairs]
+        for i, r in enumerate(pending):
+            buckets[i % len(self.pairs)].append(r)
+        self._served = [len(b) for b in buckets]
+        per_pair: list[list] = [[] for _ in self.pairs]
+        errors: list[BaseException] = []
+
+        def drive(idx: int) -> None:
+            try:
+                per_pair[idx] = self.pairs[idx].host.serve(buckets[idx])
+            except BaseException as e:   # surface on the caller's thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=drive, args=(i,), daemon=True)
+                   for i in range(len(self.pairs)) if buckets[i]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        merged = sorted((res for bucket in per_pair for res in bucket),
+                        key=lambda res: res.request_id)
+        self.results.extend(merged)
+        return self.results
+
     # -- per-pair observability ----------------------------------------------
 
     def pair_summaries(self) -> dict[str, dict]:
         """Per-pair operating point after :meth:`run`, keyed by pair id:
         request/iteration counts, mean effective γ, fused fraction,
-        acceptance, the pipelined mode's hit counters (0 until it is
-        ported), the unhidden link ms, rolling p50/p95 TTFT/TPOT (NaN until
-        a retirement lands), for paged sessions the free KV blocks, and —
-        when the pair has a transport — its link stats (bytes, messages,
-        measured RTT)."""
+        acceptance, the pipelined mode's hits and misses, the unhidden link
+        ms, rolling p50/p95 TTFT/TPOT (NaN until a retirement lands), for
+        paged sessions the free KV blocks, and — when the pair has a
+        transport — its link stats (bytes, messages, measured RTT). A
+        process-backed pair reports its host's row
+        (:meth:`~repro_torch.distributed.host.PairHostHandle.summary`)."""
         out: dict[str, dict] = {}
+        if self._process_backed:
+            for pair, served in zip(self.pairs, self._served):
+                row = pair.host.summary()
+                row["requests"] = served
+                out[pair.pair_id] = row
+            return out
         for i, (pair, sess, served) in enumerate(zip(self.pairs,
                                                      self._sessions,
                                                      self._served)):
@@ -392,6 +464,7 @@ class SpecDecodeServer:
                     sess.accepted / max(1, sess.proposed), 4),
                 "pipeline_hits": sess.pipeline_hits,
                 "pipeline_misses": sess.pipeline_misses,
+                "speculative_windows": sess.speculative_windows,
                 "link_ms": round(sess.link_ms, 2),
                 "mode_policy": pair.mode_policy,
                 "ttft_p50_ms": round(self._ttft_q[i].p50(), 3),
@@ -408,6 +481,120 @@ class SpecDecodeServer:
                     transport=tr.describe(),
                     bytes_sent=tr.bytes_sent,
                     messages=tr.messages_sent,
+                    discarded_windows=tr.discarded_messages,
                     recent_rtt_ms=round(tr.recent_rtt_ms, 3))
             out[pair.pair_id] = d
         return out
+
+
+def wave_results(wave: Sequence[ServeRequest], rows: Sequence[tuple],
+                 wave_t0: float, first_tok_s: float, wave_t1: float,
+                 pair_id: str = "") -> list[ServeResult]:
+    """Per-request results of one drained wave, on the serve loop's clock:
+    ``rows[i]`` is request i's (committed tokens, acceptance bits), cut to
+    its own budget; the wave's prefill end is every member's first-token
+    time, decode time spreads per produced token, and queue wait counts in
+    TTFT."""
+    out = []
+    for r, (tokens, bits) in zip(wave, rows):
+        n = min(r.max_new_tokens, len(tokens))
+        out.append(ServeResult(
+            request_id=r.request_id, tokens=tokens[:n],
+            ttft_ms=(first_tok_s - r.arrival_s) * 1e3,
+            tpot_ms=(wave_t1 - first_tok_s) * 1e3 / max(1, n - 1),
+            e2e_ms=(wave_t1 - r.arrival_s) * 1e3,
+            acceptance_rate=(sum(bits) / len(bits)) if bits else 0.0,
+            queue_ms=(wave_t0 - r.arrival_s) * 1e3, pair_id=pair_id))
+    return out
+
+
+class WaveSpecDecodeServer:
+    """Wave-batched baseline: requests are admitted in waves of up to
+    ``max_batch`` sequences (FIFO or LAB grouping), each wave decodes to
+    the wave-max budget, and the next wave starts only when the whole wave
+    has drained (the reference's ``WaveSpecDecodeServer``). Single-pair
+    colocated only.
+
+    The waves share ONE :class:`DecodeSession` per geometry (slots, output
+    width, prompt pad bound — from the config, else the queue's maxima):
+    each wave admits into the retired slots through the session's insert
+    step, so only the first wave captures its steps and every later wave
+    replays them, as the reference's compiled wave program is reused."""
+
+    def __init__(self, engine: SpecDecodeEngine,
+                 window_policy: Optional[WindowPolicy] = None,
+                 cfg: Optional[ServerConfig] = None):
+        self.engine = engine
+        self.policy = window_policy or StaticWindowPolicy(4)
+        self.cfg = cfg or ServerConfig()
+        self.queue: list[ServeRequest] = []
+        self.results: list[ServeResult] = []
+        self.session: Optional[DecodeSession] = None
+        self._geom: Optional[tuple] = None
+
+    def submit(self, req: ServeRequest) -> None:
+        self.queue.append(req)
+
+    def _next_wave(self, arrived: list[ServeRequest]) -> list[ServeRequest]:
+        head = arrived.pop(0)
+        wave = [head]
+        if self.cfg.length_aware:
+            rest = sorted(arrived,
+                          key=lambda r: abs(len(r.prompt) - len(head.prompt)))
+            chosen = rest[: self.cfg.max_batch - 1]
+            ids = {id(c) for c in chosen}
+            arrived[:] = [r for r in arrived if id(r) not in ids]
+            wave.extend(chosen)
+        else:
+            while arrived and len(wave) < self.cfg.max_batch:
+                wave.append(arrived.pop(0))
+        return wave
+
+    def _wave_session(self, pending: list[ServeRequest]) -> DecodeSession:
+        """The session for this stream's geometry (kept across ``run``
+        calls while the geometry holds)."""
+        geom = pool_geometry(self.cfg, pending)
+        if self.session is None or self._geom != geom:
+            pair = ServingPair("engine", self.engine, self.policy,
+                               mode_policy=self.cfg.mode_policy)
+            self.session = pool_session(self.cfg, pair, geom)
+            self._geom = geom
+        return self.session
+
+    def run(self) -> list[ServeResult]:
+        """Drain the queue wave by wave; returns per-request results (see
+        :func:`wave_results`). Every member of a wave is admitted with the
+        wave-max budget and the wave runs at most that budget plus one
+        chunk of rounds."""
+        assert self.cfg.transport is None, \
+            "transports need the continuous server"
+        if not self.queue:
+            return self.results
+        pending = sorted(self.queue, key=lambda r: r.arrival_s)
+        self.queue = []
+        sess = self._wave_session(pending)
+        clock = _ArrivalClock()
+        while pending:
+            now = clock.now()
+            arrived = [r for r in pending if r.arrival_s <= now]
+            if not arrived:
+                clock.wait_until(min(r.arrival_s for r in pending))
+                continue
+            wave = self._next_wave(arrived)
+            for r in wave:
+                pending.remove(r)
+            budget = max(r.max_new_tokens for r in wave)
+            wave_t0 = clock.now()
+            slots = [sess.admit(r.prompt, budget, request_id=r.request_id)
+                     for r in wave]
+            first_tok_s = clock.now()
+            limit = sess.iterations + budget + sess.sync_every
+            while sess.unfinished and sess.iterations < limit:
+                sess.run_chunk(self.policy, max_iters=limit)
+            rows = []
+            for j in slots:
+                tokens, rec = sess.retire(j)
+                rows.append((tokens, rec.bits))
+            self.results.extend(wave_results(wave, rows, wave_t0,
+                                             first_tok_s, clock.now()))
+        return self.results

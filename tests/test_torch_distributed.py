@@ -516,16 +516,20 @@ def test_interop_port_draft_reference_target(pair, prompts):
 # ------------------------------------------------------------ contracts
 
 def test_refusals(pair):
-    """The pipelined mode names its ROADMAP item; tree sessions stay greedy;
-    a transport must be a Transport; a sampled window does not cross a
-    socket (its distributions stay on the device)."""
+    """The pipelined mode needs a transport and γ_max ≥ 2 (the
+    reference's gates); tree sessions stay greedy; a transport must be a
+    Transport; a sampled window does not cross a socket (its distributions
+    stay on the device)."""
     _, teng = pair
-    with pytest.raises(NotImplementedError, match="A9"):
-        DecodeSession(teng, capacity=1, max_new_cap=4,
+    with pytest.raises(ValueError, match="transport"):
+        DecodeSession(teng, capacity=1, max_new_cap=4, mode_policy="pipeline")
+    with pytest.raises(ValueError, match="gamma_max"):
+        DecodeSession(teng, capacity=1, max_new_cap=4, gamma_max=1,
                       transport=InProcessTransport(), mode_policy="pipeline")
-    with pytest.raises(NotImplementedError, match="A9"):
-        teng.generate(np.zeros((1, 4), np.int32), 4,
-                      transport=InProcessTransport(), mode_policy="pipeline")
+    _, st = teng.generate(np.zeros((1, 4), np.int32), 4, gamma_max=GMAX,
+                          transport=InProcessTransport(),
+                          mode_policy="pipeline")
+    assert st.pipeline_hits + st.pipeline_misses == st.iterations
     with pytest.raises(TypeError, match="Transport"):
         DecodeSession(teng, capacity=1, max_new_cap=4, transport=object())
     sampled = SpecDecodeEngine(teng.draft_cfg, teng.target_cfg,
@@ -615,7 +619,7 @@ def test_worker_steps_flat_and_in_place(pair, kind):
 def test_launcher_prints_flat_link_keys(capsys):
     """``launch.serve --device cpu --link-rtt-ms 0 --json``: the in-process
     transport's flat summary keys beside the per-pair link fields; the
-    pipelined mode is refused."""
+    pipelined mode without a link is refused."""
     assert serve.main(["--device", "cpu", "--requests", "3", "--max-new",
                        "5", "--gamma-max", "4", "--link-rtt-ms", "0",
                        "--json"]) == 0
@@ -627,8 +631,7 @@ def test_launcher_prints_flat_link_keys(capsys):
     assert row["messages"] == s["link_messages"] and row["link_ms"] == 0.0
     assert s["step_programs"] == 3      # insert, propose, verify
     with pytest.raises(SystemExit, match="pipeline"):
-        serve.main(["--device", "cpu", "--link-rtt-ms", "0",
-                    "--mode-policy", "pipeline"])
+        serve.main(["--device", "cpu", "--mode-policy", "pipeline"])
 
 
 def test_transport_session_frees_the_engine_without_gc(pair, prompts):

@@ -470,16 +470,17 @@ def test_unported_features_name_their_roadmap_items(pair):
                                temperature=0.7, device="cpu")
     with pytest.raises(ValueError, match="greedy-only"):
         DecodeSession(sampled, capacity=1, max_new_cap=4, max_branches=2)
-    with pytest.raises(NotImplementedError, match="A9"):
+    # the pipelined mode (A9) is ported: it needs a transport
+    with pytest.raises(ValueError, match="transport"):
         DecodeSession(teng, capacity=1, max_new_cap=4,
                       mode_policy="pipeline")
     # tree speculation (A10) is ported: its policy and session construct
     assert make_window_policy("awc", max_branches=2).max_branches == 2
     sess = DecodeSession(teng, capacity=1, max_new_cap=4, max_branches=2)
     assert sess.max_branches == 2
-    # transports (A9's half-duplex rounds) are ported; the pipelined mode
-    # over them is not
+    # transports and the pipelined mode over them (A9) are ported
     from repro_torch.distributed import InProcessTransport
-    with pytest.raises(NotImplementedError, match="A9"):
-        teng.generate(np.zeros((1, 4), np.int32), 4,
-                      transport=InProcessTransport(), mode_policy="pipeline")
+    _, st = teng.generate(np.zeros((1, 4), np.int32), 4, gamma_max=4,
+                          transport=InProcessTransport(),
+                          mode_policy="pipeline")
+    assert st.pipeline_hits + st.pipeline_misses == st.iterations

@@ -63,6 +63,13 @@ def test_no_source_imports_jax_or_reference():
     assert not bad, bad
 
 
+def test_checks_cover_the_topology_and_the_hosts():
+    """The two checks above walk every module of the package, the
+    topology layer and the worker hosts included."""
+    names = {m for m, _ in _modules()}
+    assert {"repro_torch.topology", "repro_torch.distributed.host"} <= names
+
+
 def test_engine_without_device_raises_on_a_cpu_machine():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
