@@ -46,19 +46,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               temperature 1.0, self-speculation accepts ≥ 0.99, the noised
               draft strictly between 0 and 1, and a seed fixes the tokens;
 5. capture  — float32, published widths at the exact phases' depths:
-              every session step captured once as a CUDA graph and
-              replayed, against the same runs eager (``capture=False``) on
-              one engine, seed and stream: qwen servers dense and paged
-              with γ changing every round, tree sessions (static γ 4 × b
-              3, AWC with max_branches=3, γ × b changing every round) on
-              a noised-draft pair, the zamba2 ← mamba2 split server —
-              captured tokens == eager == the target-only greedy decode;
-              at temperature 1.0 captured == eager on one seed (qwen and
-              zamba2 pairs); 2 graphs per server and 1 per wave session
-              whatever γ, b and 8 admissions into 4 slots did, replays =
-              rounds + admissions − warm-ups; then the bf16 qwen dense
-              static γ 4 serve at QWEN_CUT depth eager and captured back to
-              back (walls, TPOT, device busy share, equal launch counts);
+              every step of an engine-owned slot pool captured once as a
+              CUDA graph and replayed, against the same runs eager
+              (``capture=False``) on one engine, seed and stream: qwen
+              servers dense and paged with γ changing every round, tree
+              sessions (static γ 4 × b 3, AWC with max_branches=3, γ × b
+              changing every round) on a noised-draft pair, the zamba2 ←
+              mamba2 split server — captured tokens == eager == the
+              target-only greedy decode; at temperature 1.0 captured ==
+              eager on one seed (qwen and zamba2 pairs); each step warms up
+              and captures once per pool whatever γ, b and 8 admissions
+              into 4 slots did, every other call a replay (checked against
+              each pooled step's calls); a second ``generate``, a second
+              server and a second tree wave of one geometry build no pool,
+              capture no graph and warm no step up, with the first run's
+              tokens (== target greedy); at T 1.0 two ``generate(seed=5)``
+              give equal tokens; two live sessions hold two pools; TTFT of
+              a cold and a warm bf16 server at QWEN_CUT side by side; then
+              the bf16 qwen dense static γ 4 serve at QWEN_CUT depth eager
+              and captured back to back (walls, TPOT, device busy share,
+              equal launch counts);
 6. distributed — the draft/target split, half-duplex rounds over a
               transport, every worker program captured once per session:
               float32 at the exact phases' depths, qwen3-14b ← qwen2.5-3b
@@ -141,7 +148,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               ``cluster_2pair_procs.json`` shape (four hosts) in f32 at
               QWEN_CUT == the in-process deployment of the same spec; every
               host's second wave under the capture guard, graphs and B1
-              launches per host exact.
+              launches per host exact;
+12. families — the moe, encdec and vlm families at the published widths:
+              float32 arctic-480b (experts 128 → 8, 2 layers) ← llama2-7b
+              (2 layers) captured == eager, dense == paged, colocated ==
+              in-process transport at capacity factor 1.25, server and
+              tree wave == target greedy at cf 8 (nothing dropped), T 1.0
+              seeded; bf16 arctic-480b (experts 128 → 8, layers 35 → 12)
+              ← llama2-7b as published, static γ 4 served dense and paged
+              on the 8 × 32 stream with exact launches, the dropped expert
+              assignments per round and the MoE blocks' share of the
+              verify step (profiled eager run, and timed); whisper-tiny ←
+              its noised copy at the published size, ``generate(frontend=)``
+              over 1500 frames == target greedy in float32, a second call
+              capturing nothing, bf16 timed; internvl2-76b text-only at the
+              published widths, float32 depth 2 ← 1 == target greedy, a
+              live frontend refused, bf16 depth 4 ← 1 timed.
 The decode rounds of every chunk run under
 ``torch.cuda.set_sync_debug_mode("error")`` (all but the one call per
 session step that captures it: capture synchronizes the device); a
@@ -167,7 +189,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "exact", "capture", "distributed",
-          "serve", "exact_ssm", "serve_ssm", "pipeline", "topology")
+          "serve", "exact_ssm", "serve_ssm", "pipeline", "topology",
+          "families")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
@@ -1559,6 +1582,47 @@ def want_graphs(steps: int, calls: int) -> dict:
     return {"captured": steps, "replays": calls - steps, "warm_ups": steps}
 
 
+def step_calls(eng) -> dict:
+    """Calls so far of every captured step in the engine's slot pools, by
+    (pool, step name): the pools outlive sessions, and so do their steps'
+    graphs."""
+    out = {}
+    for pools in eng.pools.values():
+        for pool in pools:
+            steps = dict(pool.steps)
+            if pool.wire is not None:
+                steps.update(pool.wire["steps"])
+            out.update({(id(pool), k): st.calls for k, st in steps.items()})
+    return out
+
+
+def pool_graphs(eng, before: dict, calls: dict) -> tuple:
+    """The graphs a run on ``eng`` should have made, given the calls of
+    its steps (``calls``, by step name, summed over the pools it used) and
+    each pooled step's calls before it (``before``, :func:`step_calls`): a
+    step's first call ever warms up, its second captures and replays, every
+    later call replays, in whichever session of its pool it falls. Fails
+    unless the steps were called as ``calls`` says. Returns the expected
+    graphs and the number of steps that had run before the run."""
+    after = step_calls(eng)
+    made, warm = {}, 0
+    want = {"captured": 0, "replays": 0, "warm_ups": 0}
+    for key, total in after.items():
+        p = before.get(key, 0)
+        n = total - p
+        if not n:
+            continue
+        made[key[1]] = made.get(key[1], 0) + n
+        warm += p > 0
+        want["warm_ups"] += p == 0
+        want["captured"] += p <= 1 < p + n
+        want["replays"] += max(0, p + n - 1) - max(0, p - 1)
+    called = {k: n for k, n in calls.items() if n}
+    if made != called:
+        fail(f"step calls {made}, expected {called}")
+    return want, warm
+
+
 def summary_graphs(s: dict) -> dict:
     return {"captured": s["captured_graphs"], "replays": s["graph_replays"],
             "warm_ups": s["graph_warm_ups"]}
@@ -1598,10 +1662,11 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
     """Decode ``reqs`` wave by wave (``batch`` at a time) through
     ``DecodeSession`` as ``benchmarks/bench_tree.py`` run_cell drives it:
     ``admit_batch`` the wave, ``run_chunk`` until every row stops,
-    ``snapshot``. ``capture`` goes to each session (None: rounds replayed
-    from the session's captured graph), and so does ``transport`` (the
-    split rounds over it; None: colocated). Returns per-request tokens and
-    the summed statistics."""
+    ``snapshot``, ``close``. ``capture`` goes to each session (None:
+    rounds replayed from the graph of the session's pool, captured by the
+    pool's first session), and so does ``transport`` (the split rounds
+    over it; None: colocated). Returns per-request tokens and the summed
+    statistics."""
     from repro_torch.core.session import DecodeSession
     out = {"tokens": {}, "bits": {}, "rounds": 0, "fused": 0, "waves": 0,
            "hits": 0, "misses": 0,
@@ -1627,6 +1692,7 @@ def run_sessions(np, eng, reqs, policy, max_branches: int, batch: int = 4,
         while sess.unfinished:
             sess.run_chunk(policy)
         toks, st = sess.snapshot()
+        sess.close()
         out["wall_s"] += time.perf_counter() - t0
         for i, r in enumerate(wave):
             out["tokens"][r.request_id] = toks[i]
@@ -1871,14 +1937,15 @@ class CyclePolicy:
 def capture_pair(np, name, eng, drive, admissions, steps, ref=None) -> None:
     """Drive one configuration captured and eager (``capture=False``) on the
     same engine, seed and stream; fail unless the tokens are equal (and
-    equal ``ref``, the target-only greedy decode, where given), the
-    captured run's graphs are ``steps`` per session whatever γ, b and the
+    equal ``ref``, the target-only greedy decode, where given), each of the
+    ``steps`` steps (round; insert when 2) warmed up and captured once per
+    slot pool it ran on for the first time whatever γ, b and the
     admissions did, every other round and admission was a replay, and the
     eager run captured nothing. ``drive(capture)`` returns (tokens by
     request, rounds, sessions, recording policy)."""
     runs = {}
     for mode, capture in (("captured", None), ("eager", False)):
-        g0 = graph_counts(eng)
+        g0, c0 = graph_counts(eng), step_calls(eng)
         t0 = time.perf_counter()
         tokens, rounds, sessions, pol = drive(capture)
         runs[mode] = {"tokens": tokens, "rounds": rounds,
@@ -1887,8 +1954,12 @@ def capture_pair(np, name, eng, drive, admissions, steps, ref=None) -> None:
                       "distinct_gamma": len(set(pol.gammas)),
                       "distinct_branches": len(set(pol.widths)),
                       "seconds": time.perf_counter() - t0}
+        if capture is None:
+            calls = {"round": rounds}
+            if steps == 2:
+                calls["insert"] = admissions
+            want, reused = pool_graphs(eng, c0, calls)
     cap, eag = runs["captured"], runs["eager"]
-    want = want_graphs(steps * cap["sessions"], cap["rounds"] + admissions)
     same = sorted(cap["tokens"]) == sorted(eag["tokens"]) and all(
         np.array_equal(cap["tokens"][i], eag["tokens"][i])
         for i in eag["tokens"])
@@ -1900,6 +1971,7 @@ def capture_pair(np, name, eng, drive, admissions, steps, ref=None) -> None:
             "distinct_gamma": cap["distinct_gamma"],
             "distinct_branches": cap["distinct_branches"],
             "graphs": cap["graphs"], "expected_graphs": want,
+            "steps_reused_from_earlier_sessions": reused,
             "eager_graphs": eag["graphs"],
             "captured_equals_eager": same,
             "captured_equals_target_greedy": greedy,
@@ -1912,6 +1984,116 @@ def capture_pair(np, name, eng, drive, admissions, steps, ref=None) -> None:
     if cap["graphs"] != want or eag["graphs"] != want_graphs(0, 0):
         fail(f"capture {name}: graphs {cap['graphs']} (eager "
              f"{eag['graphs']}), expected {want}")
+
+
+def wave_prompts(np, reqs):
+    """One right-padded wave of ``reqs``: (prompts, lengths)."""
+    lens = np.array([r.prompt.size for r in reqs], np.int32)
+    prompts = np.zeros((len(reqs), int(lens.max())), np.int32)
+    for i, r in enumerate(reqs):
+        prompts[i, :r.prompt.size] = r.prompt
+    return prompts, lens
+
+
+def pool_count(eng) -> int:
+    return sum(len(pools) for pools in eng.pools.values())
+
+
+def check_reuse(np, name, eng, run, ref=None) -> None:
+    """``run()`` (tokens by request) twice on one engine: the second call's
+    sessions lease the slot pools the first call's gave back, so it builds
+    no pool and no step, captures no graph, warms no step up and serves
+    every step call by a replay; its tokens equal the first call's (and
+    ``ref``, the target-only greedy decode, where given)."""
+    first = run()
+    g0, keys0, pools0 = graph_counts(eng), eng.step_programs(), \
+        pool_count(eng)
+    t0 = time.perf_counter()
+    second = run()
+    graphs = graphs_since(eng, g0)
+    same = sorted(first) == sorted(second) and all(
+        np.array_equal(first[i], second[i]) for i in first)
+    greedy = None if ref is None else all(
+        np.array_equal(second[i], ref[i]) for i in second)
+    info = {"phase": "capture", "check": "a second session of one geometry "
+            "reuses the engine's pool", "run": name,
+            "second_graphs": graphs,
+            "second_pools_built": pool_count(eng) - pools0,
+            "second_step_keys_built": eng.step_programs() - keys0,
+            "tokens_equal_first": same,
+            "equals_target_greedy": greedy,
+            "second_seconds": time.perf_counter() - t0}
+    emit(info)
+    if (graphs["captured"] or graphs["warm_ups"] or not graphs["replays"]
+            or info["second_pools_built"] or info["second_step_keys_built"]
+            or not same or greedy is False):
+        fail(f"pool reuse {name}: {info}")
+
+
+def check_live_sessions(eng, reqs) -> None:
+    """Two live sessions of one geometry hold two pools: different
+    buffers; closed, both pools are free for the next sessions."""
+    from repro_torch.core.session import DecodeSession
+    kw = dict(capacity=2, max_new_cap=8, max_prompt_len=48,
+              gamma_max=GAMMA_MAX)
+    a, b = DecodeSession(eng, **kw), DecodeSession(eng, **kw)
+    a.admit(reqs[0].prompt, 8)
+    b.admit(reqs[1].prompt, 8)
+    two = (a._pool is not b._pool and a._pool.key == b._pool.key
+           and a._state.target_cache.k_buf.data_ptr()
+           != b._state.target_cache.k_buf.data_ptr())
+    key = a._pool.key
+    a.close()
+    b.close()
+    free = not any(p.leased for p in eng.pools[key])
+    emit({"phase": "capture", "check": "two live sessions of one geometry",
+          "pools": len(eng.pools[key]), "distinct_buffers": two,
+          "both_free_after_close": free})
+    if not (two and free):
+        fail("two live sessions shared a pool, or a closed pool stayed "
+             "leased")
+
+
+def cold_warm_ttft(torch, np, dev) -> None:
+    """The qwen3-14b ← qwen2.5-3b pair in bf16 at QWEN_CUT depth, static γ
+    4, the smoke's 8 × 32 stream through the in-process server twice on
+    one engine: the cold run warms up and captures its steps, the warm run
+    leases the same pool and only replays. TTFT side by side."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    d_cfg, t_cfg = (dataclasses.replace(get_config(n), n_layers=QWEN_CUT[n])
+                    for n in ("qwen2.5-3b", "qwen3-14b"))
+    eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    reqs = _workload(np, t_cfg.vocab)
+    rows = {}
+    for run in ("cold", "warm"):
+        g0 = graph_counts(eng)
+        t0 = time.perf_counter()
+        srv, res = _serve(eng, StaticWindowPolicy(4), reqs)
+        wall = time.perf_counter() - t0
+        toks = sum(len(r.tokens) for r in res.values())
+        rows[run] = {
+            "mean_ttft_ms": float(np.mean([r.ttft_ms for r in res.values()])),
+            "max_ttft_ms": float(np.max([r.ttft_ms for r in res.values()])),
+            "mean_tpot_ms": float(np.mean([r.tpot_ms for r in res.values()])),
+            "tokens_per_s": toks / wall, "wall_s": wall,
+            "rounds": srv._sessions[0].iterations,
+            "graphs": graphs_since(eng, g0),
+            "tokens": {i: r.tokens for i, r in res.items()}}
+    same = all(np.array_equal(rows["cold"]["tokens"][i],
+                              rows["warm"]["tokens"][i]) for i in range(8))
+    for r in rows.values():
+        del r["tokens"]
+    emit({"phase": "capture", "check": "cold vs warm server",
+          "run": "qwen dense static gamma 4, bf16, QWEN_CUT",
+          "layers": [QWEN_CUT["qwen2.5-3b"], QWEN_CUT["qwen3-14b"]],
+          "card": smi_line(), **rows, "tokens_equal": same})
+    if rows["warm"]["graphs"]["captured"] or not same:
+        fail(f"cold vs warm server: {rows}")
+    del eng, srv
+    torch.cuda.empty_cache()
 
 
 def phase_capture(torch, kernels):
@@ -1977,12 +2159,25 @@ def phase_capture(torch, kernels):
     capture_pair(np, "qwen linear paged", eng,
                  server(eng, CyclePolicy, reqs, paged_kv=True,
                         kv_pool_blocks=int(0.6 * parity)), n, 2, ref)
+    # pools: a second generate / server of one geometry captures nothing
+    wave, lens = wave_prompts(np, reqs[:4])
+    check_reuse(np, "qwen generate", eng, lambda: dict(enumerate(
+        eng.generate(wave, 32, StaticWindowPolicy(4),
+                     prompt_lens=lens)[0])), ref)
+    check_reuse(np, "qwen server", eng, lambda: {
+        i: r.tokens for i, r in _serve(eng, StaticWindowPolicy(4),
+                                       reqs)[1].items()}, ref)
+    check_live_sessions(eng, reqs)
     t1 = SpecDecodeEngine(d_cfg, t_cfg, draft_params=eng.draft_params,
                           target_params=eng.target_params,
                           temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
                           device=dev)
     capture_pair(np, "qwen linear dense T=1", t1,
                  server(t1, lambda: StaticWindowPolicy(4), reqs), n, 2)
+    # the re-seeded pool generator: generate(seed=s) twice, equal tokens
+    check_reuse(np, "qwen generate T=1 seed 5", t1, lambda: dict(enumerate(
+        t1.generate(wave, 32, StaticWindowPolicy(4), prompt_lens=lens,
+                    seed=5)[0])))
     del t1
     tree = SpecDecodeEngine(t_cfg, t_cfg, target_params=eng.target_params,
                             draft_params=noised_copy(torch, eng.target_params,
@@ -1995,6 +2190,9 @@ def phase_capture(torch, kernels):
             ("cycle", lambda: CyclePolicy(B_MAX))):
         capture_pair(np, f"qwen tree {name}", tree,
                      waves(tree, policy, B_MAX), 0, 1, ref)
+    check_reuse(np, "qwen tree wave", tree, lambda: run_sessions(
+        np, tree, reqs[:4], StaticWindowPolicy(4, branches=B_MAX),
+        B_MAX)["tokens"], ref)
     del tree, eng
     torch.cuda.empty_cache()
 
@@ -2014,6 +2212,7 @@ def phase_capture(torch, kernels):
                  server(t1, lambda: StaticWindowPolicy(4), sreqs), n, 2)
     del ssm, t1
     torch.cuda.empty_cache()
+    cold_warm_ttft(torch, np, dev)
     eager_against_captured(torch, kernels)
 
 
@@ -2183,7 +2382,7 @@ def distributed_exact(torch, kernels) -> dict:
         for tname, make_tr in transports.items():
             for mode, make_pol in modes.items():
                 tr = make_tr()
-                g0 = graph_counts(eng)
+                g0, c0 = graph_counts(eng), step_calls(eng)
                 kernels.reset_launches()
                 try:
                     srv, res = _serve(eng, make_pol(), reqs, transport=tr,
@@ -2199,8 +2398,8 @@ def distributed_exact(torch, kernels) -> dict:
                     np.array_equal(got[i], ref[i])
                     and np.array_equal(got[i], colo[lay][i]) for i in ref)
                 graphs = graphs_since(eng, g0)
-                want = want_step_graphs(split_calls(rounds, fused, len(reqs),
-                                                    False))
+                want, _ = pool_graphs(eng, c0, split_calls(
+                    rounds, fused, len(reqs), False))
                 msgs = 2 * (rounds - fused) + 2 * sess.control_roundtrips
                 row = {"layout": lay, "transport": tname, "mode": mode,
                        "rounds": rounds, "fused": fused,
@@ -2234,12 +2433,14 @@ def distributed_exact(torch, kernels) -> dict:
     pol = lambda: StaticWindowPolicy(4, branches=B_MAX)
     col = run_sessions(np, tree, reqs, pol(), B_MAX)
     tr = InProcessTransport()
-    g0 = graph_counts(tree)
+    g0, c0 = graph_counts(tree), step_calls(tree)
     kernels.reset_launches()
     dist = run_sessions(np, tree, reqs, pol(), B_MAX, transport=tr)
     _add(totals, kernels.LAUNCHES)
     graphs = graphs_since(tree, g0)
-    want = want_graphs(3 * dist["waves"], 3 * dist["rounds"])
+    n = dist["rounds"]
+    want, _ = pool_graphs(tree, c0, {"propose_tree": n, "verify_tree": n,
+                                     "ingest_tree": n})
     same = all(np.array_equal(dist["tokens"][i], tref[i])
                and np.array_equal(col["tokens"][i], tref[i]) for i in tref)
     emit({"phase": "distributed", "check": "tree over in-process == "
@@ -2321,15 +2522,15 @@ def distributed_exact(torch, kernels) -> dict:
             for r in sreqs}
     _, col = _serve(ssm, StaticWindowPolicy(4), sreqs)
     tr = InProcessTransport()
-    g0 = graph_counts(ssm)
+    g0, c0 = graph_counts(ssm), step_calls(ssm)
     kernels.reset_launches()
     srv, dist = _serve(ssm, StaticWindowPolicy(4), sreqs, transport=tr,
                        mode_policy="distributed")
     _add(totals, kernels.LAUNCHES)
     sess = srv._sessions[0]
     graphs = graphs_since(ssm, g0)
-    want = want_step_graphs(split_calls(sess.iterations, 0, len(sreqs),
-                                        True))
+    want, _ = pool_graphs(ssm, c0, split_calls(sess.iterations, 0,
+                                               len(sreqs), True))
     same = all(np.array_equal(dist[i].tokens, sref[i])
                and np.array_equal(col[i].tokens, sref[i]) for i in sref)
     emit({"phase": "distributed", "check": "zamba2 <- mamba2 over "
@@ -2696,14 +2897,14 @@ def serve_tree(torch, np, kernels, dev) -> dict:
         policy = RecordingPolicy(inner, max(1, b_max))
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        g0 = graph_counts(eng)
+        g0, c0 = graph_counts(eng), step_calls(eng)
         res = run_sessions(np, eng, reqs, policy, b_max)
         launches = dict(kernels.LAUNCHES)
         rounds, waves = res["rounds"], res["waves"]
-        # each wave's session captures its round step (the wave prefill
-        # stays eager)
-        graphs, graphs_want = graphs_since(eng, g0), want_graphs(waves,
-                                                                 rounds)
+        # each wave's session replays its pool's round step (the wave
+        # prefill stays eager), captured by the pool's first session
+        graphs = graphs_since(eng, g0)
+        graphs_want, _ = pool_graphs(eng, c0, {"round": rounds})
         tree_n = rounds if b_max else 0
         want = {"decode_attn": rounds * (GAMMA_MAX * L_d + L_t)
                 + waves * (L_d + L_t), "paged_decode_attn": 0,
@@ -3119,7 +3320,7 @@ def pipeline_exact(torch, kernels) -> dict:
                          mode_policy="distributed", **kw)
         for tname, make_tr in transports.items():
             tr = make_tr()
-            g0 = graph_counts(eng)
+            g0, c0 = graph_counts(eng), step_calls(eng)
             kernels.reset_launches()
             try:
                 srv, res = _serve(eng, static(), reqs, batch=PIPE_BATCH,
@@ -3133,7 +3334,8 @@ def pipeline_exact(torch, kernels) -> dict:
                        and np.array_equal(half[i].tokens, ref[i])
                        for i in ref)
             graphs = graphs_since(eng, g0)
-            want = want_step_graphs(pipe_calls(sess, len(reqs), False))
+            want, _ = pool_graphs(eng, c0, pipe_calls(sess, len(reqs),
+                                                      False))
             row = {"layout": lay, "transport": tname,
                    "rounds": sess.iterations, "hits": sess.pipeline_hits,
                    "misses": sess.pipeline_misses,
@@ -3147,14 +3349,14 @@ def pipeline_exact(torch, kernels) -> dict:
                 bad.append(row)
     # γ changing every round and a fused round every fifth (CyclePolicy):
     # the same 4 graphs + ingest serve every γ, hit, miss and admission
-    g0 = graph_counts(eng)
+    g0, c0 = graph_counts(eng), step_calls(eng)
     kernels.reset_launches()
     srv, res = _serve(eng, CyclePolicy(), reqs, batch=PIPE_BATCH,
                       transport=InProcessTransport(), mode_policy="pipeline")
     _add(totals, kernels.LAUNCHES)
     sess = srv._sessions[0]
     graphs = graphs_since(eng, g0)
-    want = want_step_graphs(pipe_calls(sess, len(reqs), False))
+    want, _ = pool_graphs(eng, c0, pipe_calls(sess, len(reqs), False))
     row = {"layout": "dense", "transport": "in-process", "policy": "cycle",
            "rounds": sess.iterations, "fused": sess.fused_iterations,
            "hits": sess.pipeline_hits, "misses": sess.pipeline_misses,
@@ -3208,7 +3410,7 @@ def pipeline_exact(torch, kernels) -> dict:
     _, half = _serve(ssm, static(), sreqs, batch=PIPE_BATCH,
                      transport=InProcessTransport(),
                      mode_policy="distributed")
-    g0 = graph_counts(ssm)
+    g0, c0 = graph_counts(ssm), step_calls(ssm)
     kernels.reset_launches()
     srv, pipe = _serve(ssm, static(), sreqs, batch=PIPE_BATCH,
                        transport=InProcessTransport(), mode_policy="pipeline")
@@ -3220,7 +3422,7 @@ def pipeline_exact(torch, kernels) -> dict:
     same = all(np.array_equal(pipe[i].tokens, sref[i])
                and np.array_equal(half[i].tokens, sref[i]) for i in sref)
     graphs = graphs_since(ssm, g0)
-    want = want_step_graphs(pipe_calls(sess, len(sreqs), True))
+    want, _ = pool_graphs(ssm, c0, pipe_calls(sess, len(sreqs), True))
     emit({"phase": "pipeline", "check": "zamba2 <- mamba2 pipelined == "
           "half-duplex == target greedy", "dtype": "float32",
           "rounds": sess.iterations, "hits": sess.pipeline_hits,
@@ -3231,6 +3433,417 @@ def pipeline_exact(torch, kernels) -> dict:
         fail("pipeline zamba2 <- mamba2: tokens, graphs or no miss")
     del ssm, srv, sess
     torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------ the moe, encdec and vlm families
+
+FAMILY_KERNELS = ("decode_attn", "paged_decode_attn", "tree_verify",
+                  "gather_reduce", "cdf_sample")
+# arctic-480b cut to one card: experts 128 → 8, layers 35 → 12 (bf16 about
+# 26 GB), every width as published; the f32 checks at 2 layers each side
+ARCTIC_CUT = dict(n_experts=8, n_layers=12)
+FAMILY_EXACT_LAYERS = 2
+WHISPER_NOISE = 0.01
+INTERNVL_LAYERS = (4, 1)           # bf16 timing: target, draft
+INTERNVL_EXACT_LAYERS = (2, 1)     # f32 exactness
+
+
+def _fam_greedy(torch, model, params, prompt, n, slots, dev, frontend=None):
+    """Target-only greedy decode of one prompt (T = 1 steps); ``frontend``
+    (1, F, D) for an encdec model."""
+    toks = torch.as_tensor(prompt[None, :].astype("int64"), device=dev)
+    logits, cache = model.prefill(params, toks, slots, frontend=frontend)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    out = [tok]
+    pos = torch.full((1,), prompt.size, dtype=torch.int32, device=dev)
+    for _ in range(n - 1):
+        logits, cache = model.decode_step(params, tok, cache, pos)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+        pos = pos + 1
+    return torch.cat(out).cpu().numpy()
+
+
+def _served(kernels, totals, eng, policy, reqs, **kw):
+    """One in-process server run whose launches count for the phase:
+    (server, results, launches, wall s)."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv, res = _serve(eng, policy, reqs, **kw)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    _add(totals, launches)
+    return srv, res, launches, wall
+
+
+def moe_exact(torch, np, kernels, totals, dev) -> None:
+    """Float32 at the published widths, 2 layers each side: arctic-480b
+    (8 experts, cf 1.25) ← llama2-7b. Captured == eager (γ changing every
+    round), dense == paged (pool at 60 % of parity), colocated ==
+    in-process transport; at cf 8 (no assignment dropped) the served and
+    tree-wave tokens == the target's greedy decode; at T 1.0 a seed fixes
+    the tokens of ``generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    from repro_torch.distributed import InProcessTransport
+    t0 = time.perf_counter()
+    t_cfg = dataclasses.replace(get_config("arctic-480b"), n_experts=8,
+                                n_layers=FAMILY_EXACT_LAYERS, dtype="float32")
+    d_cfg = dataclasses.replace(get_config("llama2-7b"),
+                                n_layers=FAMILY_EXACT_LAYERS, dtype="float32")
+    eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    reqs = _workload(np, t_cfg.vocab)
+    n = len(reqs)
+    P = 16 * math.ceil(max(r.prompt.size for r in reqs) / 16)
+    slots = P + 32 + 2 * GAMMA_MAX + 18
+    parity = 4 * math.ceil(slots / 16)
+
+    def server(policy, **kw):
+        def drive(capture):
+            pol = RecordingPolicy(policy(), 1)
+            srv, res = _serve(eng, pol, reqs, capture=capture, **kw)
+            return ({i: r.tokens for i, r in res.items()},
+                    srv._sessions[0].iterations, 1, pol)
+        return drive
+
+    capture_pair(np, "arctic moe cf 1.25", eng, server(CyclePolicy), n, 2)
+    runs = {}
+    for name, kw in (("dense", {}),
+                     ("paged", dict(paged_kv=True,
+                                    kv_pool_blocks=int(0.6 * parity))),
+                     ("in-process", dict(transport=InProcessTransport(),
+                                         mode_policy="distributed"))):
+        _, res, launches, _ = _served(kernels, totals, eng,
+                                      StaticWindowPolicy(4), reqs, **kw)
+        runs[name] = {i: r.tokens for i, r in res.items()}
+    same = {k: all(np.array_equal(runs[k][i], runs["dense"][i])
+                   for i in runs["dense"]) for k in ("paged", "in-process")}
+    # cf 8: capacity 2·S per expert and group, so nothing drops
+    e8 = SpecDecodeEngine(d_cfg, dataclasses.replace(t_cfg,
+                                                     capacity_factor=8.0),
+                          draft_params=eng.draft_params,
+                          target_params=eng.target_params,
+                          gamma_max=GAMMA_MAX, device=dev)
+    ref = {r.request_id: _fam_greedy(torch, e8.target, e8.target_params,
+                                     r.prompt, r.max_new_tokens, slots, dev)
+           for r in reqs}
+    _, res8, _, _ = _served(kernels, totals, e8, StaticWindowPolicy(4), reqs)
+    kernels.reset_launches()
+    tree = run_sessions(np, e8, reqs, StaticWindowPolicy(4, branches=B_MAX),
+                        B_MAX)
+    _add(totals, {k: v for k, v in kernels.LAUNCHES.items() if v})
+    greedy = all(np.array_equal(res8[i].tokens, ref[i]) for i in ref)
+    tree_greedy = all(np.array_equal(tree["tokens"][i], ref[i])
+                      for i in ref)
+    del e8
+    t1 = SpecDecodeEngine(d_cfg, t_cfg, draft_params=eng.draft_params,
+                          target_params=eng.target_params,
+                          temperature=SAMPLED_T, gamma_max=GAMMA_MAX,
+                          device=dev)
+    wave, lens = wave_prompts(np, reqs[:4])
+    kernels.reset_launches()
+    sampled = [t1.generate(wave, 32, StaticWindowPolicy(4), prompt_lens=lens,
+                           seed=5)[0] for _ in range(2)]
+    _add(totals, {k: v for k, v in kernels.LAUNCHES.items() if v})
+    seeded = np.array_equal(sampled[0], sampled[1])
+    info = {"phase": "families", "check": "moe exact", "dtype": "float32",
+            "target": f"{t_cfg.name} (experts 128 -> 8, {t_cfg.n_layers} "
+            f"layers, widths as published)",
+            "draft": f"{d_cfg.name} ({d_cfg.n_layers} layers)",
+            "requests": n, "paged_equals_dense": same["paged"],
+            "in_process_equals_colocated": same["in-process"],
+            "cf8_server_equals_target_greedy": greedy,
+            "cf8_tree_equals_target_greedy": tree_greedy,
+            "tree_rounds": tree["rounds"],
+            "t1_same_seed_equal": seeded,
+            "t1_full_in_range": bool(((sampled[0] >= 0)
+                                      & (sampled[0] < t_cfg.vocab)).all()),
+            "seconds": time.perf_counter() - t0}
+    emit(info)
+    if not (all(same.values()) and greedy and tree_greedy and seeded
+            and info["t1_full_in_range"]):
+        fail(f"moe exactness: {info}")
+    del eng, t1
+    torch.cuda.empty_cache()
+
+
+class MoeRecorder:
+    """Wraps ``repro_torch.models.moe.moe_block`` (the model calls it
+    through the module) for an eager run: each call of the verify window's
+    shape (``rows`` × γ_max + 1) adds its dropped expert assignments to a
+    device counter and runs inside ``record_function("moe_block")``; the
+    target's verify steps of that shape run inside
+    ``record_function("verify_step")``. Device ops only: the rounds' no-sync
+    guard holds. Information only."""
+
+    def __init__(self, torch, eng, rows: int):
+        import repro_torch.models.moe as moe
+        self.torch, self.moe, self.real = torch, moe, moe.moe_block
+        self.eng, self.shape = eng, (rows, GAMMA_MAX + 1)
+        self.dropped = torch.zeros((), device=eng.device)
+
+    def __enter__(self):
+        torch, real, shape = self.torch, self.real, self.shape
+        moe = self.moe
+        rf = torch.profiler.record_function
+
+        def block(x, p, cfg):
+            if tuple(x.shape[:2]) != shape:
+                return real(x, p, cfg)
+            self.dropped += moe.dropped_assignments(x, p["router"], cfg)
+            with rf("moe_block"):
+                return real(x, p, cfg)
+
+        verify = self.eng.target.verify_step
+
+        def verify_step(params, tokens, *a, **kw):
+            if tuple(tokens.shape) != shape:
+                return verify(params, tokens, *a, **kw)
+            with rf("verify_step"):
+                return verify(params, tokens, *a, **kw)
+
+        moe.moe_block = block
+        self.eng.target.verify_step = verify_step
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_block = self.real
+        del self.eng.target.verify_step
+
+
+def _scope_device_ms(prof, name: str) -> float:
+    for ev in prof.key_averages():
+        if ev.key == name:
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            return t / 1e3
+    return 0.0
+
+
+def moe_serve(torch, np, kernels, totals, dev) -> None:
+    """bf16, arctic-480b at the published widths (experts 128 → 8, layers
+    35 → 12) ← llama2-7b as published: static γ 4 on the smoke's 8 × 32
+    stream through the in-process server, dense then paged (captured);
+    exact launch counts; then an eager dense run counting the dropped
+    expert assignments per round, and the MoE blocks' share of the verify
+    step's device time: three eager verify steps at the verify shape
+    profiled (torch.profiler: a whole eager served run takes minutes to
+    trace), and the same share timed with CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.session import DecodeSession
+    from repro_torch.core.window import StaticWindowPolicy
+    import repro_torch.models.moe as moe
+    t0 = time.perf_counter()
+    t_cfg = dataclasses.replace(get_config("arctic-480b"), **ARCTIC_CUT)
+    d_cfg = get_config("llama2-7b")
+    eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, gamma_max=GAMMA_MAX,
+                           device=dev)
+    setup = time.perf_counter() - t0
+    reqs = _workload(np, t_cfg.vocab)
+    L_d, L_t, V = d_cfg.n_layers, t_cfg.n_layers, t_cfg.vocab
+    rows = {}
+    for name, kw in (("dense", {}), ("paged", dict(paged_kv=True))):
+        torch.cuda.reset_peak_memory_stats()
+        srv, res, launches, wall = _served(kernels, totals, eng,
+                                           StaticWindowPolicy(4), reqs, **kw)
+        R, A = srv._sessions[0].iterations, len(reqs)
+        per_round, per_admit = R * (GAMMA_MAX * L_d + L_t), A * (L_d + L_t)
+        want = ({"decode_attn": per_admit, "paged_decode_attn": per_round}
+                if kw else {"decode_attn": per_round + per_admit})
+        toks = sum(len(r.tokens) for r in res.values())
+        full = all(len(r.tokens) == 32 and (r.tokens >= 0).all()
+                   and (r.tokens < V).all() for r in res.values())
+        rows[name] = {
+            "tokens_per_s": toks / wall, "wall_s": wall, "rounds": R,
+            "mean_tpot_ms": float(np.mean([r.tpot_ms for r in res.values()])),
+            "mean_ttft_ms": float(np.mean([r.ttft_ms for r in res.values()])),
+            "acceptance": float(np.mean([r.acceptance_rate
+                                         for r in res.values()])),
+            "launches": launches, "expected_launches": want,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "all_full_in_range": full}
+        if launches != want or not full:
+            fail(f"moe serve {name}: {rows[name]}")
+    # eager: the dropped assignments of every verify window
+    rec = MoeRecorder(torch, eng, 4)
+    with rec:
+        srv, res = _serve(eng, StaticWindowPolicy(4), reqs, capture=False)
+    R = srv._sessions[0].iterations
+    # the MoE share of a verify step: profiled and timed at its shape
+    with DecodeSession(eng, capacity=4, max_new_cap=8, max_prompt_len=48,
+                       gamma_max=GAMMA_MAX, capture=False) as sess:
+        sess.admit(reqs[0].prompt, 8)
+        st = sess._state
+        win = torch.zeros((4, GAMMA_MAX + 1), dtype=torch.int32, device=dev)
+
+        def verify():
+            return eng.target.verify_step(eng.target_params, win,
+                                          st.target_cache, st.pos)
+        verify()
+        torch.cuda.synchronize()
+        with MoeRecorder(torch, eng, 4), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng.target.verify_step(eng.target_params, win,
+                                       st.target_cache, st.pos)
+            torch.cuda.synchronize()
+        verify_step_ms = cuda_ms(torch, verify)
+    moe_ms = _scope_device_ms(prof, "moe_block")
+    verify_ms = _scope_device_ms(prof, "verify_step")
+    x = torch.randn(4, GAMMA_MAX + 1, t_cfg.d_model, device=dev,
+                    dtype=eng.target.dtype)
+    lp = {k: v[0] for k, v in eng.target_params["layers"]["moe"].items()}
+    block_ms = cuda_ms(torch, lambda: moe.moe_block(x, lp, t_cfg))
+    emit({"phase": "families", "check": "moe serve", "dtype": "bfloat16",
+          "target": f"{t_cfg.name} (experts 128 -> 8, layers 35 -> 12, "
+          "widths as published)", "draft": f"{d_cfg.name} (as published)",
+          "card": smi_line(), "setup_seconds": setup, **rows,
+          "eager_rounds": R,
+          "dropped_assignments_per_round": float(rec.dropped) / max(1, R),
+          "assignments_per_round": 4 * (GAMMA_MAX + 1)
+          * t_cfg.experts_per_tok * L_t,
+          "moe_share_of_verify_profiled": moe_ms / verify_ms
+          if verify_ms else None,
+          "moe_block_ms": block_ms, "verify_step_ms": verify_step_ms,
+          "moe_share_of_verify_timed": L_t * block_ms / verify_step_ms,
+          "seconds": time.perf_counter() - t0})
+    del eng, srv, res, prof, st
+    torch.cuda.empty_cache()
+
+
+def whisper_run(torch, np, kernels, totals, dev) -> None:
+    """whisper-tiny ← its noised copy (σ 0.01) at the published size (4 + 4
+    layers, d 384, 6 heads of 64, vocab 51865, 1500 frames from the seed):
+    float32 ``generate(frontend=)`` == the target's greedy decode with the
+    same frontend, a second call on the engine captures nothing; then
+    bf16 timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    t0 = time.perf_counter()
+    base = get_config("whisper-tiny")
+    reqs = _workload(np, base.vocab, n=4)
+    wave, lens = wave_prompts(np, reqs)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    frames = torch.randn(len(reqs), base.n_frontend_tokens, base.d_model,
+                         generator=gen, device=dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        target = SpecDecodeEngine(cfg, cfg, seed=1, device=dev)
+        eng = SpecDecodeEngine(cfg, cfg, target_params=target.target_params,
+                               draft_params=noised_copy(
+                                   torch, target.target_params,
+                                   WHISPER_NOISE, 7),
+                               gamma_max=GAMMA_MAX, device=dev)
+        del target
+        fe = frames.to(eng.target.dtype)
+        row = {}
+        for run in ("cold", "warm"):
+            g0 = graph_counts(eng)
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            toks, st = eng.generate(wave, 32, StaticWindowPolicy(4),
+                                    prompt_lens=lens, frontend=fe)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            row[run] = {"wall_s": wall, "tokens_per_s": toks.size / wall,
+                        "rounds": st.iterations,
+                        "acceptance": st.acceptance_rate,
+                        "graphs": graphs_since(eng, g0)}
+            _add(totals, {k: v for k, v in kernels.LAUNCHES.items() if v})
+        if dtype == "float32":
+            slots = int(lens.max()) + 32 + 2 * GAMMA_MAX + 18
+            ref = [_fam_greedy(torch, eng.target, eng.target_params,
+                               r.prompt, 32, slots, dev, fe[i:i + 1])
+                   for i, r in enumerate(reqs)]
+            row["equals_target_greedy"] = all(
+                np.array_equal(toks[i], ref[i]) for i in range(len(reqs)))
+        out[dtype] = row
+        del eng
+        torch.cuda.empty_cache()
+    f32 = out["float32"]
+    emit({"phase": "families", "check": "whisper generate(frontend=)",
+          "target": "whisper-tiny (published size)",
+          "draft": f"whisper-tiny + noise {WHISPER_NOISE}",
+          "frames": base.n_frontend_tokens, "requests": len(reqs),
+          "card": smi_line(), **out, "seconds": time.perf_counter() - t0})
+    if not f32["equals_target_greedy"] or f32["warm"]["graphs"]["captured"]:
+        fail(f"whisper: {out}")
+
+
+def internvl_run(torch, np, kernels, totals, dev) -> None:
+    """internvl2-76b text-only at the published widths: float32 at depth 2
+    ← a draft of the same widths at depth 1, ``generate`` == the target's
+    greedy decode; a live frontend raises NotImplementedError (the
+    reference's rule); then bf16 at depth 4 ← 1 timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecDecodeEngine
+    from repro_torch.core.window import StaticWindowPolicy
+    t0 = time.perf_counter()
+    base = get_config("internvl2-76b")
+    reqs = _workload(np, base.vocab, n=4)
+    wave, lens = wave_prompts(np, reqs)
+    out = {}
+    for dtype, (L_t, L_d) in (("float32", INTERNVL_EXACT_LAYERS),
+                              ("bfloat16", INTERNVL_LAYERS)):
+        t_cfg = dataclasses.replace(base, n_layers=L_t, dtype=dtype)
+        d_cfg = dataclasses.replace(base, n_layers=L_d, dtype=dtype)
+        eng = SpecDecodeEngine(d_cfg, t_cfg, seed=0, gamma_max=GAMMA_MAX,
+                               device=dev)
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        toks, st = eng.generate(wave, 32, StaticWindowPolicy(4),
+                                prompt_lens=lens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        _add(totals, {k: v for k, v in kernels.LAUNCHES.items() if v})
+        row = {"layers": [L_t, L_d], "wall_s": wall,
+               "tokens_per_s": toks.size / wall, "rounds": st.iterations}
+        if dtype == "float32":
+            slots = int(lens.max()) + 32 + 2 * GAMMA_MAX + 18
+            row["equals_target_greedy"] = all(
+                np.array_equal(toks[i], _fam_greedy(
+                    torch, eng.target, eng.target_params, r.prompt, 32,
+                    slots, dev)) for i, r in enumerate(reqs))
+            try:
+                eng.target.prefill(
+                    eng.target_params,
+                    torch.as_tensor(wave[:1], device=dev), 64,
+                    frontend=torch.zeros((1, 4, base.d_model), device=dev))
+                row["frontend_refused"] = False
+            except NotImplementedError:
+                row["frontend_refused"] = True
+        out[dtype] = row
+        del eng
+        torch.cuda.empty_cache()
+    emit({"phase": "families", "check": "internvl2 text-only",
+          "target": "internvl2-76b (widths as published, depth cut)",
+          "requests": len(reqs), "card": smi_line(), **out,
+          "seconds": time.perf_counter() - t0})
+    f32 = out["float32"]
+    if not (f32["equals_target_greedy"] and f32["frontend_refused"]):
+        fail(f"internvl2: {out}")
+
+
+def phase_families(torch, kernels) -> dict:
+    import numpy as np
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    moe_exact(torch, np, kernels, totals, dev)
+    moe_serve(torch, np, kernels, totals, dev)
+    whisper_run(torch, np, kernels, totals, dev)
+    internvl_run(torch, np, kernels, totals, dev)
     return totals
 
 
@@ -3705,7 +4318,8 @@ def main(argv=None) -> int:
         seconds["serve_ssm"] = time.perf_counter() - t0
     for name, phase, main_path in (
             ("pipeline", phase_pipeline, PIPE_KERNELS),
-            ("topology", phase_topology, TOPO_KERNELS)):
+            ("topology", phase_topology, TOPO_KERNELS),
+            ("families", phase_families, FAMILY_KERNELS)):
         t0 = time.perf_counter()
         if name in phases:
             phase_totals = phase(torch, kernels)

@@ -52,14 +52,22 @@ split workers' ``("dw_propose", γ_max)``, ``("tw_verify", γ_max)``,
 transport, :meth:`split_workers`), the quantity that must not grow with
 γ/b changes or admission churn;
 ``graphs`` counts the graphs the engine's sessions captured and replayed.
-Graphs belong to the session whose buffers they were captured on: a
-second session captures its own. The wave prefill (``admit_batch``) and
-the paged release stay eager.
+Graphs belong to the buffers they were captured on, and those belong to
+the engine: a session leases an engine-owned slot pool of its geometry
+(:mod:`.pool`, :meth:`SpecDecodeEngine.lease_pool`), whose buffers and
+captured steps every later session of that geometry reuses, so a second
+``generate``, server run or tree wave of known geometry captures nothing
+and warms nothing up. The functions that make the steps close over a
+weak proxy of the engine: the engine keeps its pools, their steps keep
+the bodies, and a strong reference back would make an engine whose
+weights only the garbage collector frees. The wave prefill
+(``admit_batch``) and the paged release stay eager.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -74,6 +82,7 @@ from ..models.kvcache import (HybridCacheT, PagedAttnCache, SSMCache,
                               paged_release_slot, tree_commit_cache)
 from ..models.model import build_model
 from .capture import GraphCounts
+from .pool import SlotPool
 from .specdec import (SpecDecodeState, _temperature_probs, sample_from_probs,
                       slot_stop_mask, spec_decode_step)
 from .tree import (TreeSpec, TreeVerifyResult, tree_committed,
@@ -234,6 +243,23 @@ class SpecDecodeEngine:
         # graphs captured / replays / warm-ups of this engine's sessions:
         # a continuous server on the card captures 2 (round step, insert)
         self.graphs = GraphCounts()
+        self.pools: dict[tuple, list[SlotPool]] = {}   # geometry → pools
+        # what the step closures hold (see the module docstring)
+        self._proxy = weakref.proxy(self)
+
+    def lease_pool(self, key: tuple, **shape) -> SlotPool:
+        """A pool of geometry ``key`` that no live session holds, marked
+        leased; a new one (built from ``shape``, :class:`SlotPool`'s
+        arguments) when every pool of the key is leased."""
+        pools = self.pools.setdefault(key, [])
+        free = [pool for pool in pools if not pool.leased]
+        if free:
+            pool = free[0]
+        else:
+            pool = SlotPool(key, self.device, **shape)
+            pools.append(pool)
+        pool.leased = True
+        return pool
 
     def split_workers(self):
         """The engine split at the wire: ``(DraftWorker, TargetWorker)``
@@ -243,7 +269,7 @@ class SpecDecodeEngine:
         engine, and an engine that kept its workers would be a reference
         cycle, its weights freed only by the garbage collector."""
         from ..distributed.workers import DraftWorker, TargetWorker
-        return DraftWorker(self), TargetWorker(self)
+        return DraftWorker(self._proxy), TargetWorker(self._proxy)
 
     def step_programs(self) -> int:
         """Distinct step keys built so far (the reference's compiled-program
@@ -289,18 +315,19 @@ class SpecDecodeEngine:
     def _linear_step(self, gamma_max: int, split: bool):
         draft_decode = self.draft.decode_step
         target_verify = self.target.verify_step
+        eng = self._proxy
 
         def step(state: SpecDecodeState, active_gamma, row_idx, out_buf,
                  cursor, nacc_buf, nn_buf, max_new, done, eos_id,
                  generator=None) -> None:
             res = spec_decode_step(draft_decode, target_verify,
-                                   self.draft_params, self.target_params,
+                                   eng.draft_params, eng.target_params,
                                    state, gamma_max, active_gamma,
-                                   self.temperature, generator)
-            stop, adv = self._stop_and_advance(state, res, cursor, max_new,
-                                               done, eos_id, split)
-            if split and not self._draft_attention:
-                _scan_cache_advance(draft_decode, self.draft_params,
+                                   eng.temperature, generator)
+            stop, adv = eng._stop_and_advance(state, res, cursor, max_new,
+                                              done, eos_id, split)
+            if split and not eng._draft_attention:
+                _scan_cache_advance(draft_decode, eng.draft_params,
                                     state.draft_cache, adv, state.pos,
                                     stop.num_new)
             _commit(state, res.state.last_token, stop, res.new_tokens, out_buf,
@@ -363,6 +390,7 @@ class SpecDecodeEngine:
         self._check_tree()
         self.step_keys.add(("tree", d_max, b_max))
         spec = self._tree_spec(d_max, b_max)
+        eng = self._proxy
 
         def step(state: SpecDecodeState, active_gamma, branches, row_idx,
                  out_buf, cursor, nacc_buf, nn_buf, max_new, done, eos_id,
@@ -370,9 +398,9 @@ class SpecDecodeEngine:
             # counters: the caller's zeroed int32 (B,) workspace of the
             # one-launch verdict (tree_verify_fused)
             tree_tokens, dcache = tree_propose(
-                self.draft, self.draft_params, state.draft_cache,
+                eng.draft, eng.draft_params, state.draft_cache,
                 state.last_token, state.pos, spec)
-            res, new_tokens, stop = self._tree_verdict(
+            res, new_tokens, stop = eng._tree_verdict(
                 spec, state, tree_tokens, active_gamma, branches, cursor,
                 max_new, done, eos_id, counters)
             # the draft's grid moves like the target's (tree slots are not
@@ -439,16 +467,17 @@ class SpecDecodeEngine:
         geometry, any slot / prompt length / budget: all three are device
         values."""
         self.step_keys.add(("insert", capacity, slots, pad_len))
+        eng = self._proxy
 
         def insert(state, out_buf, cursor, max_new_buf, done, prompt, plen,
                    slot, req_max_new, generator=None) -> None:
-            one = self._prefill(prompt, slots, prompt_lens=plen,
-                                generator=generator)
+            one = eng._prefill(prompt, slots, prompt_lens=plen,
+                               generator=generator)
             slot = slot.long()
             insert_slot(state.draft_cache, one.draft_cache, slot)
             insert_slot(state.target_cache, one.target_cache, slot)
-            self._insert_rows(state, one, out_buf, cursor, max_new_buf,
-                              done, slot, req_max_new)
+            eng._insert_rows(state, one, out_buf, cursor, max_new_buf,
+                             done, slot, req_max_new)
 
         return insert
 
@@ -460,12 +489,13 @@ class SpecDecodeEngine:
         rows padded with −1) and point the slot's block table at them."""
         self.step_keys.add(("insert-paged", capacity, slots, pad_len,
                             d_nlog, t_nlog))
+        eng = self._proxy
 
         def insert(state, out_buf, cursor, max_new_buf, done, prompt, plen,
                    slot, req_max_new, draft_blocks, target_blocks,
                    generator=None) -> None:
-            one = self._prefill(prompt, slots, prompt_lens=plen,
-                                generator=generator)
+            one = eng._prefill(prompt, slots, prompt_lens=plen,
+                               generator=generator)
             slot = slot.long()
             for cache, row, blocks in (
                     (state.draft_cache, one.draft_cache, draft_blocks),
@@ -474,8 +504,8 @@ class SpecDecodeEngine:
                     paged_insert_row(cache, row, blocks, slot)
                 else:
                     insert_slot(cache, row, slot)
-            self._insert_rows(state, one, out_buf, cursor, max_new_buf,
-                              done, slot, req_max_new)
+            eng._insert_rows(state, one, out_buf, cursor, max_new_buf,
+                             done, slot, req_max_new)
 
         return insert
 
@@ -497,19 +527,24 @@ class SpecDecodeEngine:
 
     def _prefill(self, prompts: torch.Tensor, slots: int,
                  prompt_lens: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 frontend: Optional[torch.Tensor] = None
                  ) -> SpecDecodeState:
         """Right-padded batched prefill. With ``prompt_lens`` the anchor
         logit is taken at each sequence's true last prompt token, padded
         cache slots are overwritten before any query can attend them, and
         recurrent state stops exactly at the true length. The
         anchor token is the target's argmax at temperature 0 and a sample
-        (noise from ``generator``) above it."""
+        (noise from ``generator``) above it. ``frontend`` (B, F, D) goes to
+        both models' prefill (an encdec side encodes it; a vlm refuses
+        it)."""
         B, S = prompts.shape
         _, dcache = self.draft.prefill(self.draft_params, prompts, slots,
-                                       prompt_lens=prompt_lens)
+                                       prompt_lens=prompt_lens,
+                                       frontend=frontend)
         tlg, tcache = self.target.prefill(self.target_params, prompts, slots,
-                                          prompt_lens=prompt_lens)
+                                          prompt_lens=prompt_lens,
+                                          frontend=frontend)
         if prompt_lens is None:
             anchor = tlg[:, -1, :]
             pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
@@ -533,14 +568,17 @@ class SpecDecodeEngine:
                  prompt_lens: Optional[np.ndarray] = None,
                  gamma_max: Optional[int] = None,
                  sync_every: Optional[int] = None, eos_id: int = -1,
-                 transport=None, mode_policy: str = "auto", seed: int = 0
-                 ) -> tuple[np.ndarray, GenerationStats]:
+                 transport=None, mode_policy: str = "auto", seed: int = 0,
+                 frontend=None) -> tuple[np.ndarray, GenerationStats]:
         """Batched one-wave generation over a :class:`DecodeSession`.
         Returns (tokens (B, max_new), stats). ``seed`` seeds the session's
         generator (the sampled path's draws; the reference's ``key``).
         ``transport`` (a :class:`repro_torch.distributed.Transport`) runs
         the rounds as draft→verify→verdict exchanges between the split
-        workers; ``mode_policy`` is the session's."""
+        workers; ``mode_policy`` is the session's. ``frontend`` (B, F, D),
+        a tensor or array: an encdec pair's frame embeddings. The session
+        is closed at the end, so its pool serves the next call of this
+        geometry."""
         from .session import DecodeSession    # session imports engine types
         policy = window_policy or StaticWindowPolicy(4)
         if gamma_max:
@@ -552,15 +590,16 @@ class SpecDecodeEngine:
         sync = max(1, int(sync_every if sync_every else self.sync_every))
         B = prompts.shape[0]
         t0 = time.perf_counter()
-        sess = DecodeSession(self, capacity=B, max_new_cap=max_new_tokens,
-                             gamma_max=gmax, sync_every=sync, eos_id=eos_id,
-                             mode_policy=mode_policy, seed=seed,
-                             transport=transport)
-        sess.admit_batch(prompts, max_new_tokens, prompt_lens=prompt_lens)
-        max_iters = max_new_tokens + sync
-        while sess.unfinished and sess.iterations < max_iters:
-            sess.run_chunk(policy, max_iters=max_iters)
-        tokens, stats = sess.snapshot()
+        with DecodeSession(self, capacity=B, max_new_cap=max_new_tokens,
+                           gamma_max=gmax, sync_every=sync, eos_id=eos_id,
+                           mode_policy=mode_policy, seed=seed,
+                           transport=transport) as sess:
+            sess.admit_batch(prompts, max_new_tokens,
+                             prompt_lens=prompt_lens, frontend=frontend)
+            max_iters = max_new_tokens + sync
+            while sess.unfinished and sess.iterations < max_iters:
+                sess.run_chunk(policy, max_iters=max_iters)
+            tokens, stats = sess.snapshot()
         stats.wall_s = time.perf_counter() - t0
         return tokens, stats
 

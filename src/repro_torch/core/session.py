@@ -20,24 +20,40 @@ device they run under ``torch.cuda.set_sync_debug_mode("error")``, so a
 host sync slipped into the step raises instead of silently serializing the
 loop. The host syncs once per chunk (:meth:`_sync_and_attribute`).
 
-On the card the session captures each of its steps once as a CUDA graph
+The device side of a session — caches, lifecycle and stats buffers, step
+inputs, generator, transport buffers and the captured steps — is an
+engine-owned :class:`~repro_torch.core.pool.SlotPool` of the session's
+geometry (:meth:`DecodeSession._geometry`), leased when the session first
+needs its state (the first ``admit``, or ``admit_batch``) and reset then,
+and given back by :meth:`DecodeSession.close` (``generate``, a server's
+``run`` and a host's wave close theirs; a ``with`` block does; a
+``weakref.finalize`` gives back the pool of a session dropped unclosed).
+A later session of the same geometry leases it again, so it replays the
+graphs an earlier one captured. Two live sessions never share a pool.
+
+On the card each step of a pool is captured once as a CUDA graph
 (:mod:`.capture`): the round step at its first ``run_chunk`` and the insert
 at its first ``admit`` run eagerly as the warm-up, their second call
-captures and replays, every later round or admission only fills the step's
-static inputs (γ, b and the stats row by a device-to-device copy; the
-padded prompt, length, slot, budget and paged block rows by one host copy)
-and replays. The capture call synchronizes the device, so it alone runs
-outside the no-sync guard. ``capture=False`` keeps every step eager on the
-card (the comparison); a CPU session runs them eagerly by the device rule
-and refuses ``capture=True``. The wave prefill (``admit_batch``) and the
-paged release stay eager: the first runs once per session, the second is
-one block-table row fill.
+captures and replays, every later round or admission — in this session or
+a later one on the pool — only fills the step's static inputs (γ, b and
+the stats row by a device-to-device copy; the padded prompt, length, slot,
+budget and paged block rows by one host copy) and replays. The capture
+call synchronizes the device, so it alone runs outside the no-sync guard.
+``capture=False`` keeps every step eager on the card (the comparison); a
+CPU session runs them eagerly by the device rule and refuses
+``capture=True``. The wave prefill (``admit_batch``) and the paged release
+stay eager: the first writes its prefill into the pool's buffers, the
+second is one block-table row fill.
 
-The session owns one ``torch.Generator`` on its device, seeded from
-``seed`` (the reference session's PRNG key). At temperature > 0 every
+The pool's ``torch.Generator`` is re-seeded from the session's ``seed``
+at the lease (the reference session's PRNG key). At temperature > 0 every
 round and every admission draws from it on the device — the draft's
 Gumbel noise, the verify's uniforms, the sampled anchor token — so a seed
 fixes the committed tokens and no draw syncs the host.
+
+Encoder-decoder and vlm pairs admit whole waves with their frontend
+(``admit_batch(frontend=)``); per-slot admission refuses them, as the
+reference does.
 
 The rounds run the engine's linear step for the pair (``_step_fn``: fused
 for two attention models, split when a side is ssm or hybrid). With
@@ -112,6 +128,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -120,7 +137,7 @@ import torch
 
 from ..distributed.transport import Transport
 from ..distributed.wire import TransportProtocolError, VerdictMsg, WindowMsg
-from ..models.kvcache import BlockAllocator, logical_blocks, reset_slot
+from ..models.kvcache import copy_cache_, logical_blocks, reset_slot
 # fused-mode tokens stream edge-ward one control round trip per this many
 # committed tokens — the same amortization the link model charges
 from ..sim.network import DEFAULT_FUSED_CHUNK as FUSED_FLUSH_TOKENS
@@ -218,6 +235,21 @@ class HostImage:
         self.dev.copy_(self.host, non_blocking=True)
 
 
+def _pooled(name: str):
+    """A session attribute that lives in its pool (None before the lease;
+    a closed session has none)."""
+    def get(self):
+        if self._closed:
+            raise RuntimeError("the session is closed: its pool serves "
+                               "other sessions now")
+        return None if self._pool is None else getattr(self._pool, name)
+    return property(get)
+
+
+FRONTEND_REFUSAL = ("per-slot admission needs a frontend-free arch; use "
+                    "admit_batch for vlm/encdec waves")
+
+
 @contextlib.contextmanager
 def no_host_sync(device: torch.device):
     """Raise on any host synchronization inside the block (CUDA only)."""
@@ -276,10 +308,33 @@ class DecodeSession:
                        degenerate tree: the linear path's tokens. Greedy,
                        attention families, dense KV,
     ``capture``        replay each step from a CUDA graph captured once
-                       (None: on the card, not on the CPU); ``False`` on
-                       the card runs every step eagerly; ``True`` on the
-                       CPU raises.
+                       per pool (None: on the card, not on the CPU);
+                       ``False`` on the card runs every step eagerly;
+                       ``True`` on the CPU raises.
+
+    Close a session (:meth:`close`, or use it as a context manager) when
+    its requests are out: its pool then serves the next session of its
+    geometry on the engine.
     """
+
+    _state = _pooled("state")
+    _out_buf = _pooled("out_buf")
+    _cursor = _pooled("cursor")
+    _max_new = _pooled("max_new")
+    _done = _pooled("done")
+    _nacc = _pooled("nacc")
+    _nn = _pooled("nn")
+    _gamma_tab = _pooled("gamma_tab")
+    _branch_tab = _pooled("branch_tab")
+    _row_tab = _pooled("row_tab")
+    _gamma_in = _pooled("gamma_in")
+    _branch_in = _pooled("branch_in")
+    _row_in = _pooled("row_in")
+    _eos = _pooled("eos")
+    _tree_counters = _pooled("tree_counters")
+    _gen = _pooled("gen")
+    _alloc = _pooled("alloc")
+    _wire = _pooled("wire")
 
     def __init__(self, engine, capacity: int, max_new_cap: int,
                  max_prompt_len: Optional[int] = None,
@@ -339,11 +394,11 @@ class DecodeSession:
             raise ValueError("graph capture runs on the card; a CPU session "
                              "runs its steps eagerly (capture=None/False)")
         self.capture = on_card if capture is None else bool(capture)
-        self._side = torch.cuda.Stream(self.device) if self.capture else None
-        self._round: Optional[CapturedStep] = None
-        self._insert: Optional[CapturedStep] = None
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
+        self.seed = int(seed)
+        self._pool = None
+        self._closed = False
+        self._finalizer = None
+        self._closed_free_blocks: Optional[int] = None
         self.capacity = int(capacity)
         self.max_new_cap = int(max_new_cap)
         self.max_prompt_len = (None if max_prompt_len is None
@@ -366,21 +421,11 @@ class DecodeSession:
             raise ValueError(
                 "paged sessions need at least one attention-family side "
                 "(recurrent state has no positions to page)")
-        self._alloc: dict[str, Optional[BlockAllocator]] = {
-            "draft": None, "target": None}
         self._slot_blocks: list[Optional[dict]] = [None] * self.capacity
 
         self.slots_len = (None if self.max_prompt_len is None
                           else self._cache_len(self.max_prompt_len))
-        self._state: Optional[SpecDecodeState] = None
         self._slots: list[Optional[SlotRecord]] = [None] * self.capacity
-        self._out_buf = None
-        self._cursor = None
-        self._max_new = None
-        self._done = None
-        self._nacc = None
-        self._nn = None
-        self._tree_counters = None
 
         # engine-wide accounting / window-policy features (bounded lists)
         self.iterations = 0
@@ -401,7 +446,6 @@ class DecodeSession:
         self.control_roundtrips = 0      # fused-mode stream flushes
         self._fused_pending = 0          # fused tokens since the last flush
         self._round_seq = 0              # wire round ids (RTT pairing)
-        self._wire = None                # transport rounds' buffers, steps
         self._alpha_recent: list[float] = []
         self._tpot_recent: list[float] = []
         self._pipe_recent: list[float] = []
@@ -439,9 +483,12 @@ class DecodeSession:
         return int(n) if n else self.capacity * self._n_logical()
 
     def free_kv_blocks(self) -> Optional[int]:
-        """Min free blocks across paged sides (None for dense sessions)."""
+        """Min free blocks across paged sides (None for dense sessions; a
+        closed session's count at its close)."""
         if not self.paged:
             return None
+        if self._closed:
+            return self._closed_free_blocks
         self._ensure_state()
         return min(a.free_blocks for a in self._alloc.values()
                    if a is not None)
@@ -458,55 +505,85 @@ class DecodeSession:
         return all(a is None or a.free_blocks >= need
                    for a in self._alloc.values())
 
-    def _init_buffers(self) -> None:
-        B, dev = self.capacity, self.device
-        i32 = dict(dtype=torch.int32, device=dev)
-        # one column past max_new_cap: the drop sink of _accumulate
-        self._out_buf = torch.full((B, self.max_new_cap + 1), -1, **i32)
-        self._cursor = torch.zeros((B,), **i32)
-        self._max_new = torch.zeros((B,), **i32)
-        self._done = torch.ones((B,), dtype=torch.bool, device=dev)
-        self._nacc = torch.zeros((self.sync_every, B), **i32)
-        self._nn = torch.zeros((self.sync_every, B), **i32)
-        # per-round scalars: tables on the device, and the round step's
-        # static inputs, filled from them by one device-to-device copy each
-        self._gamma_tab = torch.arange(self.gamma_max + 1, **i32)
-        self._branch_tab = torch.arange(self.max_branches + 1, **i32)
-        self._row_tab = torch.arange(self.sync_every, dtype=torch.long,
-                                     device=dev)
-        self._gamma_in = torch.zeros((), **i32)
-        self._branch_in = torch.zeros((), **i32)
-        self._row_in = torch.zeros((), dtype=torch.long, device=dev)
-        self._eos = torch.full((), self.eos_id, **i32)
-        # the tree verdict's per-row counters (tree_verify_fused): zeroed
-        # once here, left at zero by every launch, owned by this session
-        self._tree_counters = (torch.zeros((B,), **i32)
-                               if self.max_branches else None)
+    # ------------------------------------------------------------ the pool
+
+    def _geometry(self, enc_frames: int = 0) -> tuple:
+        """The pool key: every value the pool's buffers and captured steps
+        were built for."""
+        blocks = tuple(self._pool_blocks(side)
+                       if self.paged and self._paged_sides[side] else 0
+                       for side in ("draft", "target"))
+        wire = ("pipeline" if self.mode_policy == "pipeline"
+                else "split" if self.transport is not None else None)
+        return (self.capacity, self.max_new_cap, self.max_prompt_len,
+                self.slots_len, self.paged, self.kv_block_size, blocks,
+                self.kv_quantize, self.gamma_max, self.sync_every,
+                self.max_branches, wire, self.engine.temperature > 0.0,
+                self.capture, int(enc_frames))
+
+    def _lease(self, enc_frames: int = 0) -> bool:
+        """Lease and reset a pool of this session's geometry from the
+        engine; returns whether its state is still to be built (a new pool,
+        or one whose first session failed before building it)."""
+        if self._closed:
+            raise RuntimeError("the session is closed")
+        key = self._geometry(enc_frames)
+        pool = self.engine.lease_pool(
+            key, capacity=self.capacity, max_new_cap=self.max_new_cap,
+            sync_every=self.sync_every, gamma_max=self.gamma_max,
+            max_branches=self.max_branches, capture=self.capture)
+        pool.blocks = dict(zip(("draft", "target"), key[6]))
+        self._pool = pool
+        self._finalizer = weakref.finalize(self, pool.release)
+        pool.reset(self.seed, self.eos_id)
+        return pool.state is None
+
+    def close(self) -> None:
+        """Give the pool back to the engine (idempotent). The session's
+        host-side records (counters, γ log, per-slot records) stay
+        readable; its device buffers do not."""
+        if self._closed:
+            return
+        if self._pool is not None:
+            if self.paged:
+                self._closed_free_blocks = self.free_kv_blocks()
+            self._finalizer()
+            self._pool = None
+        self._closed = True
+
+    def __enter__(self) -> "DecodeSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _ensure_state(self) -> None:
-        """Lazily build an all-free device state for per-slot admission."""
+        """Lease the pool for per-slot admission: an all-free device state
+        (built the first time the pool is leased)."""
         if self._state is not None:
             return
         eng = self.engine
         assert self.max_prompt_len is not None, \
             "per-slot admission needs max_prompt_len at session creation"
+        for cfg in (eng.draft_cfg, eng.target_cfg):
+            if cfg.arch_type in ("vlm", "encdec"):
+                raise ValueError(FRONTEND_REFUSAL)
+        if not self._lease():
+            return
 
         def make_cache(model, side):
             if self.paged and self._paged_sides[side]:
-                n_blocks = self._pool_blocks(side)
-                self._alloc[side] = BlockAllocator(n_blocks)
                 return model.init_paged_cache(
-                    self.capacity, self.slots_len, n_blocks,
+                    self.capacity, self.slots_len, self._pool.blocks[side],
                     self.kv_block_size, quantize=self.kv_quantize)
             return model.init_cache(self.capacity, self.slots_len)
 
         zeros = torch.zeros((self.capacity,), dtype=torch.int32,
                             device=self.device)
-        self._state = SpecDecodeState(
+        self._pool.state = SpecDecodeState(
             draft_cache=make_cache(eng.draft, "draft"),
             target_cache=make_cache(eng.target, "target"),
             last_token=zeros.clone(), pos=zeros.clone())
-        self._init_buffers()
 
     # ------------------------------------------------------------ occupancy
 
@@ -536,10 +613,14 @@ class DecodeSession:
 
     def admit_batch(self, prompts: np.ndarray, max_new,
                     prompt_lens: Optional[np.ndarray] = None,
-                    request_ids: Optional[Sequence[int]] = None) -> list[int]:
+                    request_ids: Optional[Sequence[int]] = None,
+                    frontend=None) -> list[int]:
         """Admit one full wave into a FRESH session via batched prefill
-        (the ``generate()`` path). ``max_new`` may be a scalar or a
-        per-slot vector."""
+        (the ``generate()`` path, and the only admission path for the
+        vlm/encdec families). ``max_new`` may be a scalar or a per-slot
+        vector; ``frontend`` (B, F, D), a tensor or array, goes to both
+        models' prefill. The prefill runs eagerly into new buffers and is
+        then copied into the pool's (a new pool adopts them)."""
         assert self._state is None and not self.occupied, \
             "admit_batch only fills a fresh session; use admit() for " \
             "in-flight admission"
@@ -564,17 +645,29 @@ class DecodeSession:
         pl = (None if prompt_lens is None
               else torch.as_tensor(np.asarray(prompt_lens, np.int32),
                                    device=dev))
+        fe = (None if frontend is None
+              else torch.as_tensor(frontend, device=dev))
+        encdec = any(c.arch_type == "encdec" for c in
+                     (self.engine.draft_cfg, self.engine.target_cfg))
+        fresh = self._lease(fe.shape[1] if encdec and fe is not None else 0)
         state = self.engine._prefill(torch.as_tensor(prompts, device=dev),
                                      self.slots_len, prompt_lens=pl,
-                                     generator=self._gen)
-        self._init_buffers()
+                                     generator=self._gen, frontend=fe)
+        pool = self._pool
+        if fresh:
+            pool.state = state
+        else:
+            st = pool.state
+            copy_cache_(st.draft_cache, state.draft_cache)
+            copy_cache_(st.target_cache, state.target_cache)
+            st.last_token.copy_(state.last_token)
+            st.pos.copy_(state.pos)
         mn = np.minimum(np.broadcast_to(np.asarray(max_new), (B,)),
                         self.max_new_cap).astype(np.int32)
-        self._max_new = torch.as_tensor(mn, device=dev)
-        self._done = torch.zeros((B,), dtype=torch.bool, device=dev)
-        self._cursor = torch.ones((B,), dtype=torch.int32, device=dev)
-        self._out_buf[:, 0] = state.last_token
-        self._state = state
+        pool.max_new.copy_(torch.from_numpy(mn))
+        pool.done.zero_()
+        pool.cursor.fill_(1)
+        pool.out_buf[:, 0] = pool.state.last_token
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.prefill_s = time.perf_counter() - t0
@@ -625,16 +718,24 @@ class DecodeSession:
         return j
 
     def _captured(self, body, inputs: dict) -> CapturedStep:
-        """A step of this session: its graph is captured on this session's
-        buffers (at temperature > 0 with the session's generator)."""
+        """A step of the pool: its graph is captured on the pool's buffers
+        (at temperature > 0 with the pool's generator)."""
         sampled = self.engine.temperature > 0.0
         return CapturedStep(body, inputs, self.engine.graphs,
-                            capture=self.capture, stream=self._side,
+                            capture=self.capture, stream=self._pool.stream,
                             generator=self._gen if sampled else None)
 
+    @property
+    def _round(self) -> Optional[CapturedStep]:
+        return self._pool.steps.get("round") if self._pool else None
+
+    @property
+    def _insert(self) -> Optional[CapturedStep]:
+        return self._pool.steps.get("insert") if self._pool else None
+
     def _insert_step(self, n_blocks: tuple) -> CapturedStep:
-        """The session's insert step (built at the first ``admit``): the
-        engine's dense or paged prefill-insert on this session's state and
+        """The pool's insert step (built at its first ``admit``): the
+        engine's dense or paged prefill-insert on the pool's state and
         lifecycle buffers, reading its inputs from views of one int32
         device buffer (``n_blocks``: each paged side's block-row width)."""
         if self._insert is None:
@@ -654,7 +755,8 @@ class DecodeSession:
             else:
                 fn = eng._insert_step(self.capacity, self.slots_len, P)
                 body = lambda: fn(*args, generator=gen)
-            self._insert = self._captured(body, {"admission": buf})
+            self._pool.steps["insert"] = self._captured(
+                body, {"admission": buf})
         return self._insert
 
     def _reserve_blocks(self, prompt_len: int, budget: int
@@ -751,8 +853,8 @@ class DecodeSession:
         return n
 
     def _round_step(self) -> CapturedStep:
-        """The session's round step (built at the first chunk): the engine's
-        tree step, or its linear step for the pair, on this session's state
+        """The pool's round step (built at its first chunk): the engine's
+        tree step, or its linear step for the pair, on the pool's state
         and buffers, reading γ, b and the stats row from the static round
         inputs."""
         if self._round is None:
@@ -771,7 +873,7 @@ class DecodeSession:
                 gen = self._gen
                 body = lambda: fn(st, ins["gamma"], ins["row"], *bufs,
                                   generator=gen)
-            self._round = self._captured(body, ins)
+            self._pool.steps["round"] = self._captured(body, ins)
         return self._round
 
     def _segment(self, step: CapturedStep, *, before=(), after=(),
@@ -842,11 +944,11 @@ class DecodeSession:
                 host["record"] = w["record"].received
         w["host"] = {k: HostImage(v) for k, v in host.items()}
         w["steps"] = {}
-        self._wire = w
+        self._pool.wire = w
 
     def _worker_step(self, name: str) -> CapturedStep:
-        """The session's captured step of one worker program (built at its
-        first call), bound to the session's state and buffers: ``propose``,
+        """The pool's captured step of one worker program (built at its
+        first call), bound to the pool's state and buffers: ``propose``,
         ``verify``, ``advance``, ``ingest``, ``propose_tree``,
         ``verify_tree``, ``ingest_tree``, the pipelined mode's
         ``propose_spec``, ``checkpoint`` and ``rollback``, and a draft
@@ -855,7 +957,7 @@ class DecodeSession:
         if name in steps:
             return steps[name]
         # the bodies close over tensors and buffer objects, never over the
-        # session or the wire dict that holds the steps (no reference cycle)
+        # session or the pool that holds the steps (no reference cycle)
         eng, st, w, G = self.engine, self._state, self._wire, self.gamma_max
         dw, tw = eng.split_workers()
         gen = self._gen

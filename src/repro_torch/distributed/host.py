@@ -180,7 +180,8 @@ def capture_guard(engine, what: str):
 
 class _HostContext:
     """Everything one host process shares across waves: the resolved
-    spec/pair, the engine, and one session per wave geometry."""
+    spec/pair, the engine (whose pools keep each wave geometry's captured
+    steps), and the geometries already served."""
 
     def __init__(self, args):
         from ..kernels import resolve_device
@@ -204,8 +205,10 @@ class _HostContext:
                                    else self.pair.target)
         self.engine = None
         self.wave_index = 0
-        self.sess = None
-        self._sess_geom = None
+        self._warm: set = set()          # wave geometries served before
+        # the host's rounds and accept counts over every wave so far (each
+        # wave's session counts its own)
+        self.served = {"iterations": 0, "proposed": 0, "accepted": 0}
 
     def build_engine(self):
         """The pair's engine: this host's node by
@@ -239,32 +242,24 @@ class _HostContext:
         return self.engine
 
     def wave_session(self, capacity: int, max_new_cap: int, pad_len: int):
-        """ONE persistent session per wave geometry: waves admit into
-        retired slots through its captured insert, so steady-state waves
-        only replay. A geometry change builds a new session and resets the
-        guard to a cold wave."""
+        """One wave's session, closed by the caller at the wave's end:
+        waves admit through the captured insert of the engine's pool of
+        their geometry, so after a geometry's first wave they only
+        replay. Returns (session, guard): :func:`capture_guard` for a
+        geometry served before, none for its first wave, which builds and
+        captures every step."""
         from ..core.session import DecodeSession
-        geom = (capacity, max_new_cap, pad_len)
-        if self.sess is not None and self._sess_geom == geom:
-            return self.sess
         s = self.spec.serving
-        self.sess = DecodeSession(self.engine, capacity=capacity,
-                                  max_new_cap=max_new_cap,
-                                  max_prompt_len=pad_len,
-                                  gamma_max=s.gamma_max,
-                                  sync_every=s.sync_every,
-                                  eos_id=s.eos_id, log_gamma=False,
-                                  mode_policy="distributed")
-        self._sess_geom = geom
-        self.wave_index = 0
-        return self.sess
-
-    def guard(self):
-        """:func:`capture_guard` for steady-state waves; the first wave
-        builds and captures every step unguarded."""
-        if self.wave_index == 0:
-            return contextlib.nullcontext()
-        return capture_guard(
+        sess = DecodeSession(self.engine, capacity=capacity,
+                             max_new_cap=max_new_cap, max_prompt_len=pad_len,
+                             gamma_max=s.gamma_max, sync_every=s.sync_every,
+                             eos_id=s.eos_id, log_gamma=False,
+                             mode_policy="distributed")
+        geom = (capacity, max_new_cap, pad_len)
+        if geom not in self._warm:
+            self._warm.add(geom)
+            return sess, contextlib.nullcontext()
+        return sess, capture_guard(
             self.engine,
             f"{self.role} host steady-state wave {self.wave_index}")
 
@@ -365,10 +360,9 @@ def run_target(args) -> int:
             cmd = item.get("cmd")
             if cmd == "admit":
                 prompts = np.asarray(item["prompts"], np.int32)
-                sess = ctx.wave_session(prompts.shape[0],
-                                        int(item["max_new_cap"]),
-                                        prompts.shape[1])
-                guard = ctx.guard()
+                sess, guard = ctx.wave_session(prompts.shape[0],
+                                               int(item["max_new_cap"]),
+                                               prompts.shape[1])
                 guard.__enter__()
                 _admit_wave(sess, prompts,
                             np.asarray(item["prompt_lens"], np.int32),
@@ -383,6 +377,8 @@ def run_target(args) -> int:
             elif cmd == "fetch":
                 flush_attribution()
                 tokens, stats = sess.snapshot()
+                for k in ctx.served:
+                    ctx.served[k] += getattr(sess, k)
                 guard.__exit__(None, None, None)
                 guard = contextlib.nullcontext()
                 ep._post("verdict", {
@@ -391,9 +387,7 @@ def run_target(args) -> int:
                     "produced": np.asarray(stats.produced).tolist(),
                     "acceptance_seqs": [list(map(int, b))
                                         for b in stats.acceptance_seqs],
-                    "stats": {"iterations": sess.iterations,
-                              "proposed": sess.proposed,
-                              "accepted": sess.accepted,
+                    "stats": {**ctx.served,
                               "prefill_s": sess.prefill_s,
                               "captured_graphs": ctx.engine.graphs.captured,
                               "graph_replays": ctx.engine.graphs.replays,
@@ -401,6 +395,7 @@ def run_target(args) -> int:
                 }, CONTROL_PAYLOAD_BYTES)
                 ctx.wave_index += 1
                 _retire_wave(sess)
+                sess.close()
             elif cmd == "shutdown":
                 ep._post("verdict", {"cmd": "bye"}, CONTROL_PAYLOAD_BYTES)
                 ep.close()
@@ -469,8 +464,8 @@ def run_draft(args) -> int:
         max_new = np.asarray(cmd["max_new"], np.int32)
         max_new_cap = int(cmd["max_new_cap"])
         B = prompts.shape[0]
-        sess = ctx.wave_session(B, max_new_cap, prompts.shape[1])
-        with ctx.guard():
+        sess, guard = ctx.wave_session(B, max_new_cap, prompts.shape[1])
+        with guard:
             t_admit0 = time.perf_counter()
             _admit_wave(sess, prompts, lens, max_new, cmd.get("request_ids"))
             prefill_s = time.perf_counter() - t_admit0
@@ -508,6 +503,7 @@ def run_draft(args) -> int:
             raise TransportProtocolError(f"expected tokens, got {result!r}")
         ctx.wave_index += 1
         _retire_wave(sess)
+        sess.close()
         result.update(cmd="result", rounds=rounds, prefill_s=prefill_s,
                       decode_s=decode_s, link_stats=transport_stats(ep),
                       draft_graphs=ctx.engine.graphs.captured,
@@ -599,6 +595,7 @@ class PairHostHandle:
     workdir: str = ""
     _last_stats: dict = dataclasses.field(default_factory=dict)
     _waves: int = 0
+    _draft_rounds: int = 0
 
     def run_wave(self, prompts: np.ndarray, prompt_lens: np.ndarray,
                  max_new, request_ids=None) -> dict:
@@ -620,6 +617,7 @@ class PairHostHandle:
             raise RuntimeError(f"pair {self.pair_id}: bad wave reply {out!r}")
         self._last_stats = out
         self._waves += 1
+        self._draft_rounds += int(out["rounds"])
         return out
 
     def serve(self, reqs) -> list:
@@ -680,8 +678,9 @@ class PairHostHandle:
     def summary(self) -> dict:
         """``SpecDecodeServer.pair_summaries``-shaped row for this pair,
         with the hosts' graph counts and kernel launches (each host's
-        :data:`repro_torch.kernels.LAUNCHES` since it started) as of the
-        last wave."""
+        :data:`repro_torch.kernels.LAUNCHES` since it started), the target
+        host's rounds and accept counts and the draft host's rounds, all
+        over every wave so far."""
         st = self._last_stats.get("stats", {})
         link = self._last_stats.get("link_stats", {})
         return {"requests": self._waves * self.capacity,
@@ -689,7 +688,7 @@ class PairHostHandle:
                 "acceptance_rate": round(
                     st.get("accepted", 0) / max(1, st.get("proposed", 0)), 4),
                 "mode_policy": "distributed", "process": True,
-                "waves": self._waves,
+                "waves": self._waves, "draft_rounds": self._draft_rounds,
                 "target_graphs": st.get("captured_graphs", 0),
                 "draft_graphs": self._last_stats.get("draft_graphs", 0),
                 "target_launches": st.get("launches", {}),

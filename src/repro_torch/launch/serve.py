@@ -33,10 +33,14 @@ reduced same-family configs otherwise). Weights are random, drawn on the
 device per node from the spec's seed (``--seed``;
 :func:`repro_torch.topology.node_seed`: a one-pair spec's draft from
 ``seed``, its target from ``seed + 1``). ``--target``/``--draft`` take any
-config of the zoo whose family the port runs: dense (qwen, llama2,
-deepseek, command-r), ssm (mamba2-130m) and hybrid (zamba2-1.2b); a pair
-with an ssm or hybrid side runs the engine's split step. ``--paged-kv``
-pages only the attention-family sides and refuses a pair with none.
+config of the zoo: dense (qwen, llama2, deepseek, command-r), moe
+(arctic-480b, llama4-maverick), ssm (mamba2-130m) and hybrid
+(zamba2-1.2b); a pair with an ssm or hybrid side runs the engine's split
+step. The servers admit per slot, so an encdec (whisper-tiny) or vlm
+(internvl2-76b) side is refused at the first admission, as in the
+reference (their waves go through ``SpecDecodeEngine.generate(frontend=)``).
+``--paged-kv`` pages only the attention-family sides that page (dense,
+moe) and refuses a pair with none.
 ``--arrival-rate`` draws Poisson arrivals (requests/s); TTFT and e2e
 include queue wait. ``--temperature`` > 0 samples (kernels B3 every
 round).

@@ -1,4 +1,5 @@
-"""Model zoo of the PyTorch port — the dense family so far."""
+"""Model zoo of the PyTorch port: the dense, vlm, moe, ssm, hybrid and
+encdec families."""
 
 from .model import Model, build_model
 from .kvcache import (AttnCache, BlockAllocator, PagedAttnCache,

@@ -1,13 +1,17 @@
 """Grouped-query attention for the decode/verify path: qk_norm (qwen3),
 qkv bias (qwen2.5), sliding window, ring-buffer KV caches and
-pos_map-masked decode (speculative rollback; see models/kvcache.py).
+pos_map-masked decode (speculative rollback; see models/kvcache.py), and
+the whisper encoder's bidirectional and the decoder's cross-attention.
 
 Functions are per-layer; model.py loops over the layer-stacked params. The
 attention over the cache runs in the decode-attention kernels (B1 dense,
-B2 paged); the projections stay ``torch.matmul``."""
+B2 paged); the projections stay ``torch.matmul``. The encoder's and the
+cross-attention's softmax over a whole (T, S) score matrix is plain
+PyTorch, as the reference computes it in plain jnp."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -19,9 +23,10 @@ from .layers import apply_rope, dense_init, rms_norm
 
 
 def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
-                     device, n_layers: int) -> dict:
+                     device, n_layers: int, cross: bool = False) -> dict:
     """Layer-stacked (L, ...) attention weights, reference layout:
-    wq (L, D, H, hd), wk/wv (L, D, Hkv, hd), wo (L, H, hd, D)."""
+    wq (L, D, H, hd), wk/wv (L, D, Hkv, hd), wo (L, H, hd, D).
+    Cross-attention (``cross``) takes no qkv bias, as in the reference."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L = n_layers
     p = {
@@ -31,7 +36,7 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
         "wo": dense_init(gen, (L, h, hd, d), dtype, device, fan_in=h * hd),
     }
     zeros = lambda *s: torch.zeros((L, *s), dtype=dtype, device=device)
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"], p["bk"], p["bv"] = zeros(h, hd), zeros(kv, hd), zeros(kv, hd)
     if cfg.qk_norm:
         p["q_norm"], p["k_norm"] = zeros(hd), zeros(hd)
@@ -74,6 +79,61 @@ def _out_proj(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """ctx (B, T, Hkv, G, hd) → (B, T, D) through wo (H, hd, D)."""
     B, T = ctx.shape[:2]
     return ctx.reshape(B, T, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _repeat_kv(kv: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) → (B, S, H, hd), each kv head repeated for its
+    group (``jnp.repeat`` on the head axis)."""
+    Hkv = kv.shape[2]
+    return kv if Hkv == H else kv.repeat_interleave(H // Hkv, dim=2)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q (B, T, H, hd), k (B, S, Hkv, hd) → (B, H, T, S) in q's dtype."""
+    k = _repeat_kv(k, q.shape[2])
+    return torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(q.shape[-1])
+
+
+def _gqa_out(weights: torch.Tensor, v: torch.Tensor,
+             wo: torch.Tensor) -> torch.Tensor:
+    """weights (B, H, T, S), v (B, S, Hkv, hd) → (B, T, D)."""
+    v = _repeat_kv(v, weights.shape[1])
+    ctx = torch.einsum("bhts,bshd->bthd", weights, v)
+    return torch.einsum("bthk,hkd->btd", ctx, wo)
+
+
+def _softmax_in(scores: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 softmax over the last axis, the weights cast to ``dtype``."""
+    return torch.softmax(scores.float(), dim=-1).to(dtype)
+
+
+def attention_bidir(x: torch.Tensor, p: dict, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    """Bidirectional self-attention over a whole (B, T, D) sequence (the
+    whisper encoder): RoPE over the frame index on q and k, as the
+    reference applies it."""
+    T = x.shape[1]
+    positions = torch.arange(T, device=x.device, dtype=torch.int32)[None]
+    q = apply_rope(_project_q(x, p, cfg), positions, cfg.rope_theta)
+    k, v = _project_kv(x, p, cfg)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return _gqa_out(_softmax_in(_gqa_scores(q, k), x.dtype), v, p["wo"])
+
+
+def attention_cross(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Cross-attention of the (B, T, D) decoder window over precomputed
+    encoder K/V (B, F, Hkv, hd): no RoPE on the query."""
+    q = _project_q(x, p, cfg)
+    return _gqa_out(_softmax_in(_gqa_scores(q, enc_k), x.dtype), enc_v,
+                    p["wo"])
+
+
+def cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The encoder output's K/V for one decoder layer, computed once per
+    request at prefill (no RoPE)."""
+    return _project_kv(enc_out, p, cfg)
 
 
 def attention_decode(x_new: torch.Tensor, p: dict, cfg: ModelConfig,

@@ -15,6 +15,9 @@ and stay masked until overwritten).
   K−1, conv_dim)`` in the model dtype and SSD states ``(L, B, nh, hd, N)``
   in f32; :class:`HybridCacheT` pairs it with the hybrid's shared-attention
   :class:`AttnCache` (one layer per shared-block call).
+- :class:`EncDecCache` — the whisper decoder: its self-attention
+  :class:`AttnCache` and the read-only cross-attention K/V ``(L, B, F,
+  Hkv, hd)`` computed from the encoder output at prefill.
 
 Attention caches are updated IN PLACE (the reference donates them to its
 jitted steps; here the step writes the buffers it was given). Recurrent
@@ -430,12 +433,26 @@ class HybridCacheT:
     shared_attn: AttnCache
 
 
+@dataclass
+class EncDecCache:
+    """Encoder-decoder (whisper): the decoder's self-attention cache and
+    the cross-attention K/V of every decoder layer over the encoder's F
+    frames, ``cross_k``/``cross_v`` (L, B, F, Hkv, hd), written once at
+    prefill and only read by the decode and verify steps."""
+    self_attn: AttnCache
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+
 # --------------------------------------------------------------------------
 # Slot recycling (continuous batching)
 # --------------------------------------------------------------------------
 
 def _batch_rows(cache) -> list:
     """(buffer, init fill) of every leaf whose axis 1 is the batch row."""
+    if isinstance(cache, EncDecCache):
+        return _batch_rows(cache.self_attn) + [(cache.cross_k, 0),
+                                               (cache.cross_v, 0)]
     if isinstance(cache, HybridCacheT):
         return _batch_rows(cache.ssm) + _batch_rows(cache.shared_attn)
     if isinstance(cache, SSMCache):
@@ -449,14 +466,16 @@ def insert_slot(dst, src, slot: torch.Tensor) -> None:
     """Write batch row 0 of every leaf of ``src`` into batch row ``slot`` (a
     (1,) int64 index on the cache's device) of the matching leaf of
     ``dst``, in place (one layer-stacked copy per leaf): dense attention,
-    SSM and hybrid caches. Paged caches take :func:`paged_insert_row`."""
+    SSM, hybrid and encoder-decoder caches. Paged caches take
+    :func:`paged_insert_row`."""
     for (d, _), (s, _) in zip(_batch_rows(dst), _batch_rows(src)):
         d.index_copy_(1, slot, s[:, :1])
 
 
 def reset_slot(cache, slot: int) -> None:
-    """Scrub batch row ``slot`` of a dense, SSM or hybrid cache back to its
-    init state (k/v/conv/state zeroed, pos_map −1), in place. Insertion
+    """Scrub batch row ``slot`` of a dense, SSM, hybrid or encoder-decoder
+    cache back to its init state (k/v/conv/state/cross K/V zeroed, pos_map
+    −1), in place. Insertion
     already overwrites a slot fully, so this is hygiene for long-lived
     sessions. Paged caches are left untouched (their batch dim is the
     block table, handled by :func:`paged_release_slot`)."""
@@ -464,3 +483,35 @@ def reset_slot(cache, slot: int) -> None:
         return
     for buf, fill in _batch_rows(cache):
         buf[:, slot] = fill
+
+
+def reset_cache(cache) -> None:
+    """Return a whole cache to what a fresh session may hold, in place: no
+    position visible (every ``pos_map`` −1, a paged block table unmapped)
+    and recurrent state zeroed. K/V values stay: no query reads an entry
+    whose position is −1, and every admission rewrites the rows it fills
+    (a paged insert rewrites its blocks). Cross-attention K/V stay too: a
+    wave's prefill writes them all."""
+    if isinstance(cache, PagedAttnCache):
+        cache.pm_buf.fill_(-1)
+        cache.block_table.fill_(-1)
+    elif isinstance(cache, AttnCache):
+        cache.pm_buf.fill_(-1)
+    elif isinstance(cache, EncDecCache):
+        reset_cache(cache.self_attn)
+    elif isinstance(cache, HybridCacheT):
+        reset_cache(cache.ssm)
+        reset_cache(cache.shared_attn)
+    elif isinstance(cache, SSMCache):
+        cache.conv.zero_()
+        cache.state.zero_()
+    else:
+        raise TypeError(f"no reset for {type(cache).__name__}")
+
+
+def copy_cache_(dst, src) -> None:
+    """Copy every buffer of ``src`` into the same-shaped buffer of ``dst``
+    (one device copy per leaf): a wave's freshly prefilled cache into a
+    pool's, whose addresses the pool's captured steps read."""
+    for (d, _), (s, _) in zip(_batch_rows(dst), _batch_rows(src)):
+        d.copy_(s)

@@ -1,6 +1,16 @@
-"""Model assembler: the dense, ssm (Mamba2) and hybrid (Zamba2: a Mamba2
-backbone with one shared attention block called every ``attn_every``
-layers) families.
+"""Model assembler for all six families of the reference
+``repro/models/model.py``:
+
+- ``dense`` / ``vlm`` — a GQA transformer LM (the vlm's image prefix
+  enters only through a frontend the reference's serving path refuses too:
+  text-only it is the dense stack),
+- ``moe`` — GQA attention and the GShard capacity-dispatch MoE FFN
+  (``models/moe.py``),
+- ``ssm`` — a Mamba2 stack,
+- ``hybrid`` — Zamba2: a Mamba2 backbone with one shared attention block
+  called every ``attn_every`` layers,
+- ``encdec`` — whisper: an encoder over the frontend's frame embeddings and
+  a text decoder with cross-attention over the encoder output.
 
 The API mirrors the reference ``repro/models/model.py``::
 
@@ -28,22 +38,18 @@ from typing import Optional
 import torch
 
 from ..configs.base import PAGED_FAMILIES, ModelConfig
-from .attention import (attention_decode, attention_decode_paged,
-                        init_attn_params)
-from .kvcache import (HybridCacheT, PagedAttnCache, SSMCache,
+from . import moe
+from .attention import (attention_bidir, attention_cross, attention_decode,
+                        attention_decode_paged, cross_kv, init_attn_params)
+from .kvcache import (EncDecCache, HybridCacheT, PagedAttnCache, SSMCache,
                       init_attn_cache, init_paged_attn_cache, init_ssm_cache)
 from .layers import dense_init, dtype_of, rms_norm, rope_angles, swiglu
 from .ssm import (SSDState, conv_dim, init_ssm_params, ssm_block_decode,
                   ssm_block_train)
 
-FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in FAMILIES:
-        raise NotImplementedError(
-            f"the PyTorch port runs the {', '.join(FAMILIES)} families; "
-            f"{cfg.arch_type!r} comes with ROADMAP item A12")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# families whose decoder layers are the GQA stack over one AttnCache
+STACK_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _layer(tree: dict, l: int) -> dict:
@@ -53,7 +59,8 @@ def _layer(tree: dict, l: int) -> dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device):
-        _check_family(cfg)
+        if cfg.arch_type not in FAMILIES:
+            raise ValueError(f"unknown family {cfg.arch_type!r}")
         self.cfg = cfg
         self.dtype = dtype_of(cfg.dtype)
         self.device = torch.device(device)
@@ -71,24 +78,35 @@ class Model:
         L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
         zeros = lambda *s: torch.zeros(s, dtype=dt, device=dev)
 
-        def attn_block(n):        # norms, attention and SwiGLU MLP, (n, ...)
-            return {"ln1": zeros(n, d), "ln2": zeros(n, d),
-                    "attn": init_attn_params(gen, cfg, dt, dev, n),
-                    "mlp": {
-                        "w_gate": dense_init(gen, (n, d, f), dt, dev,
-                                             fan_in=d),
-                        "w_up": dense_init(gen, (n, d, f), dt, dev,
-                                           fan_in=d),
-                        "w_down": dense_init(gen, (n, f, d), dt, dev,
-                                             fan_in=f)}}
+        def mlp(n):
+            return {"w_gate": dense_init(gen, (n, d, f), dt, dev, fan_in=d),
+                    "w_up": dense_init(gen, (n, d, f), dt, dev, fan_in=d),
+                    "w_down": dense_init(gen, (n, f, d), dt, dev, fan_in=f)}
 
+        def attn_block(n, family="dense"):  # norms, attention, FFN: (n, ...)
+            p = {"ln1": zeros(n, d), "ln2": zeros(n, d),
+                 "attn": init_attn_params(gen, cfg, dt, dev, n)}
+            if family == "moe":
+                p["moe"] = moe.init_moe_params(gen, cfg, dt, dev, n)
+            else:
+                p["mlp"] = mlp(n)
+            if family == "encdec":      # the decoder's cross-attention
+                p["ln_x"] = zeros(n, d)
+                p["xattn"] = init_attn_params(gen, cfg, dt, dev, n,
+                                              cross=True)
+            return p
+
+        fam = cfg.arch_type
         params = {
             "embed": dense_init(gen, (cfg.vocab, d), dt, dev, fan_in=d),
             "final_norm": zeros(d),
-            "layers": (attn_block(L) if cfg.arch_type == "dense" else
-                       {"ln1": zeros(L, d),
-                        "ssm": init_ssm_params(gen, cfg, dt, dev, L)}),
+            "layers": (attn_block(L, fam) if fam not in ("ssm", "hybrid")
+                       else {"ln1": zeros(L, d),
+                             "ssm": init_ssm_params(gen, cfg, dt, dev, L)}),
         }
+        if fam == "encdec":
+            params["encoder"] = attn_block(cfg.encoder_layers)
+            params["enc_norm"] = zeros(d)
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (d, cfg.vocab), dt, dev,
                                            fan_in=d)
@@ -106,9 +124,27 @@ class Model:
         return (h @ head).float()
 
     def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
+        """The residual FFN of one block: the SwiGLU MLP, or for a moe
+        layer the MoE block (``_mlp_or_moe`` of the reference; the aux
+        loss is a training term and is dropped here)."""
         hn = rms_norm(h, lp["ln2"], self.cfg.norm_eps)
+        if "moe" in lp:
+            return h + moe.moe_block(hn, lp["moe"], self.cfg)[0]
         m = lp["mlp"]
         return h + swiglu(hn, m["w_gate"], m["w_up"], m["w_down"])
+
+    def _encode(self, params, frontend: torch.Tensor) -> torch.Tensor:
+        """The whisper encoder over the frontend's frame embeddings (B, F,
+        D): bidirectional blocks, then ``enc_norm``."""
+        cfg = self.cfg
+        h = frontend.to(self.dtype)
+        enc = params["encoder"]
+        for l in range(cfg.encoder_layers):
+            lp = _layer(enc, l)
+            h = h + attention_bidir(rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                    lp["attn"], cfg)
+            h = self._mlp(lp, h)
+        return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
     # ------------------------------------------------------------------ cache
 
@@ -120,15 +156,27 @@ class Model:
         n_seg = cfg.n_layers // every
         return every, n_seg, cfg.n_layers - n_seg * every
 
-    def init_cache(self, batch: int, slots: int, ring: bool = False):
-        """Dense: an :class:`AttnCache` of ``slots`` positions; ssm: an
-        :class:`SSMCache` (no positions); hybrid: both, the attention cache
-        with one layer per shared-block call."""
+    def init_cache(self, batch: int, slots: int, ring: bool = False,
+                   enc_frames: int = 0):
+        """Dense, vlm, moe: an :class:`AttnCache` of ``slots`` positions;
+        encdec: an :class:`EncDecCache` whose cross K/V hold
+        ``enc_frames`` frames (0: the config's ``n_frontend_tokens``); ssm:
+        an :class:`SSMCache` (no positions); hybrid: both, the attention
+        cache with one layer per shared-block call."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        if cfg.arch_type == "dense":
+        if cfg.arch_type in STACK_FAMILIES:
             return init_attn_cache(cfg.n_layers, batch, slots,
                                    cfg.n_kv_heads, cfg.head_dim, dt, dev,
                                    ring)
+        if cfg.arch_type == "encdec":
+            cross = (cfg.n_layers, batch, enc_frames or cfg.n_frontend_tokens,
+                     cfg.n_kv_heads, cfg.head_dim)
+            return EncDecCache(
+                self_attn=init_attn_cache(cfg.n_layers, batch, slots,
+                                          cfg.n_kv_heads, cfg.head_dim, dt,
+                                          dev, ring),
+                cross_k=torch.zeros(cross, dtype=dt, device=dev),
+                cross_v=torch.zeros(cross, dtype=dt, device=dev))
         ssm = init_ssm_cache(cfg.n_layers, batch, cfg.ssm_conv,
                              conv_dim(cfg), cfg.ssm_heads, cfg.ssm_head_dim,
                              cfg.ssm_state, dt, dev)
@@ -172,7 +220,7 @@ class Model:
         ``seq_lens`` — right-padded batches (prefill): the valid length per
         sequence, for exact identity-masking of recurrent state.
         ``slot_off``/``pos_off``/``win_mask`` — the tree-speculation window
-        layout (dense caches only; see
+        layout (dense, vlm and moe over a dense cache only; see
         :func:`repro_torch.models.attention.attention_decode`)."""
         return self._window_step(params, window_tokens, cache, pos, window,
                                  seq_lens, slot_off, pos_off, win_mask)
@@ -190,14 +238,16 @@ class Model:
         paged = isinstance(cache, PagedAttnCache)
         tree = (slot_off, pos_off, win_mask)
         if any(a is not None for a in tree) and (
-                paged or cfg.arch_type != "dense"):
+                paged or cfg.arch_type not in STACK_FAMILIES):
             raise NotImplementedError(
-                "tree-speculation windows need a dense AttnCache")
+                "tree-speculation windows need a dense/moe AttnCache")
         if cfg.arch_type == "ssm":
             return self._ssm_window(params, h, cache, T, seq_lens)
         if cfg.arch_type == "hybrid":
             return self._hybrid_window(params, h, cache, pos, T, w,
                                        seq_lens)
+        if cfg.arch_type == "encdec":
+            return self._encdec_window(params, h, cache, pos, T, w)
         off = (torch.arange(T, device=pos.device, dtype=pos.dtype)
                if pos_off is None else pos_off)
         abs_pos = pos[:, None] + off[None, :]
@@ -219,6 +269,29 @@ class Model:
                                      cache.v_buf[l], cache.pm_buf[l], pos,
                                      cache.ring, w, angles, *tree)
             h = self._mlp(lp, h + a)
+        return self._logits(params, h), cache
+
+    def _encdec_window(self, params, h, cache: EncDecCache,
+                       pos: torch.Tensor, T: int, w: int):
+        """The whisper decoder: per layer, self-attention over the cache
+        (B1, written in place), cross-attention over the layer's encoder
+        K/V, then the MLP."""
+        cfg = self.cfg
+        sa = cache.self_attn
+        abs_pos = pos[:, None] + torch.arange(T, device=pos.device,
+                                              dtype=pos.dtype)[None, :]
+        angles = rope_angles(abs_pos, cfg.head_dim, cfg.rope_theta)
+        layers = params["layers"]
+        for l in range(cfg.n_layers):
+            lp = _layer(layers, l)
+            x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            h = h + attention_decode(x, lp["attn"], cfg, sa.k_buf[l],
+                                     sa.v_buf[l], sa.pm_buf[l], pos,
+                                     sa.ring, w, angles)
+            x = rms_norm(h, lp["ln_x"], cfg.norm_eps)
+            h = h + attention_cross(x, lp["xattn"], cfg, cache.cross_k[l],
+                                    cache.cross_v[l])
+            h = self._mlp(lp, h)
         return self._logits(params, h), cache
 
     def _mamba(self, lp: dict, h: torch.Tensor, conv: torch.Tensor,
@@ -287,13 +360,24 @@ class Model:
 
     def prefill(self, params, tokens: torch.Tensor, slots: int,
                 ring: bool = False, window: int = 0,
-                prompt_lens: Optional[torch.Tensor] = None):
+                prompt_lens: Optional[torch.Tensor] = None,
+                frontend: Optional[torch.Tensor] = None):
         """Process the whole (right-padded) prompt through ``verify_step``
         into a fresh cache of ``slots`` positions. ``prompt_lens`` (B,) —
         each row's true length: recurrent state stops there exactly
         (attention ignores it: padded slots are overwritten before any
-        query can attend them). Returns (logits (B, S, V), cache)."""
+        query can attend them). ``frontend`` (B, F, D) — an encdec model
+        encodes these frames and fills every decoder layer's cross K/V; a
+        vlm refuses a live frontend (the reference's rule); the other
+        families ignore it. Returns (logits (B, S, V), cache)."""
         B, S = tokens.shape
+        cfg = self.cfg
+        if cfg.arch_type == "vlm" and frontend is not None:
+            raise NotImplementedError(
+                "vlm prefill with live frontend goes through serving.batching")
+        if cfg.arch_type == "encdec" and frontend is None:
+            raise ValueError("an encdec prefill needs the frontend's frame "
+                             "embeddings (B, F, D)")
         if self.cfg.arch_type != "ssm" and not ring and slots < S:
             # overflow writes are DROPPED, not clamped (models/kvcache.py):
             # refuse the geometry up front instead of silently losing the
@@ -301,7 +385,16 @@ class Model:
             raise ValueError(
                 f"prompt length {S} exceeds cache slots {slots}: size the "
                 f"cache >= prompt + decode budget (or use a ring cache)")
-        cache = self.init_cache(B, slots, ring=ring)
+        encdec = cfg.arch_type == "encdec"
+        cache = self.init_cache(B, slots, ring=ring,
+                                enc_frames=frontend.shape[1] if encdec else 0)
+        if encdec:
+            enc_out = self._encode(params, frontend)
+            for l in range(cfg.n_layers):
+                k, v = cross_kv(_layer(params["layers"]["xattn"], l), cfg,
+                                enc_out)
+                cache.cross_k[l].copy_(k)
+                cache.cross_v[l].copy_(v)
         pos0 = torch.zeros((B,), dtype=torch.int32, device=self.device)
         return self.verify_step(params, tokens, cache, pos0, window,
                                 seq_lens=prompt_lens)

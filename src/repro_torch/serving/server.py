@@ -69,23 +69,19 @@ class ServeResult:
     pair_id: str = ""            # draft–target pair that served the request
 
 
-def pool_geometry(cfg: ServerConfig, pending: Sequence[ServeRequest]
-                  ) -> tuple[int, int, int]:
-    """(slots, output width, prompt pad bound) of a session serving
-    ``pending``: the config's values, else the queue's maxima (the pad
-    bound rounded up to ``pad_to``)."""
+def open_session(cfg: ServerConfig, pair: "ServingPair",
+                 pending: Sequence[ServeRequest]) -> DecodeSession:
+    """A slot-pool session for one pair serving ``pending``: ``max_batch``
+    slots, the config's output width and prompt pad bound, else the
+    queue's maxima (the pad bound rounded up to ``pad_to``). Its device
+    side is the engine's pool of that geometry, so a later run of the same
+    geometry replays the graphs this one captured."""
     q = cfg.pad_to
     mp = cfg.max_prompt_len or max(len(r.prompt) for r in pending)
     cap = cfg.max_new_cap or max(r.max_new_tokens for r in pending)
-    return cfg.max_batch, cap, ((mp + q - 1) // q) * q
-
-
-def pool_session(cfg: ServerConfig, pair: "ServingPair",
-                 geom: tuple[int, int, int]) -> DecodeSession:
-    """A persistent slot-pool session of ``geom`` for one pair."""
     eng = pair.engine
-    return DecodeSession(eng, capacity=geom[0], max_new_cap=geom[1],
-                         max_prompt_len=geom[2],
+    return DecodeSession(eng, capacity=cfg.max_batch, max_new_cap=cap,
+                         max_prompt_len=((mp + q - 1) // q) * q,
                          gamma_max=eng.gamma_max
                          or eng._policy_gamma_bound(pair.policy),
                          sync_every=cfg.sync_every, eos_id=cfg.eos_id,
@@ -110,7 +106,8 @@ class ServingPair:
     mode_policy: str = "auto"            # auto | distributed | fused |
                                          # pipeline
     host: Optional[object] = None        # distributed.host.PairHostHandle
-    session: Optional[DecodeSession] = None  # live session, set by run()
+    session: Optional[DecodeSession] = None  # the last run's session
+                                             # (closed when run() ends)
     draining: bool = False               # drained pairs admit nothing new
 
 
@@ -317,18 +314,26 @@ class SpecDecodeServer:
         head-of-line request picks its pair via the router, LAB/FIFO
         co-admission fills that pair's remaining slots) → run one decode
         chunk per occupied pair → retire finished slots. With nothing in
-        flight the loop idles to the next arrival."""
+        flight the loop idles to the next arrival. The pairs' sessions are
+        closed at the end, so their pools serve the next run."""
         if not self.queue:
             return self.results
         if self._process_backed:
             return self._run_process_backed()
         pending = sorted(self.queue, key=lambda r: r.arrival_s)
         self.queue = []
-        geom = pool_geometry(self.cfg, pending)
-        sessions = [pool_session(self.cfg, p, geom) for p in self.pairs]
+        sessions = [open_session(self.cfg, p, pending) for p in self.pairs]
         self._sessions = sessions
         for pair, sess in zip(self.pairs, sessions):
             pair.session = sess
+        try:
+            return self._serve(pending, sessions)
+        finally:
+            for sess in sessions:
+                sess.close()
+
+    def _serve(self, pending: list[ServeRequest],
+               sessions: list[DecodeSession]) -> list[ServeResult]:
         self._served = [0] * len(self.pairs)
         clock = _ArrivalClock()
         # request_id -> (request, admit_start_s, first_token_s, pair_idx)
@@ -515,11 +520,13 @@ class WaveSpecDecodeServer:
     has drained (the reference's ``WaveSpecDecodeServer``). Single-pair
     colocated only.
 
-    The waves share ONE :class:`DecodeSession` per geometry (slots, output
+    The waves of a run share ONE :class:`DecodeSession` (slots, output
     width, prompt pad bound — from the config, else the queue's maxima):
     each wave admits into the retired slots through the session's insert
-    step, so only the first wave captures its steps and every later wave
-    replays them, as the reference's compiled wave program is reused."""
+    step, and the session's steps are its pool's, so only the first wave
+    of a geometry on the engine captures and every later wave, in this run
+    or a later one, replays, as the reference's compiled wave program is
+    reused."""
 
     def __init__(self, engine: SpecDecodeEngine,
                  window_policy: Optional[WindowPolicy] = None,
@@ -529,8 +536,8 @@ class WaveSpecDecodeServer:
         self.cfg = cfg or ServerConfig()
         self.queue: list[ServeRequest] = []
         self.results: list[ServeResult] = []
-        self.session: Optional[DecodeSession] = None
-        self._geom: Optional[tuple] = None
+        self.session: Optional[DecodeSession] = None   # the last run's
+                                                        # (closed after it)
 
     def submit(self, req: ServeRequest) -> None:
         self.queue.append(req)
@@ -550,17 +557,6 @@ class WaveSpecDecodeServer:
                 wave.append(arrived.pop(0))
         return wave
 
-    def _wave_session(self, pending: list[ServeRequest]) -> DecodeSession:
-        """The session for this stream's geometry (kept across ``run``
-        calls while the geometry holds)."""
-        geom = pool_geometry(self.cfg, pending)
-        if self.session is None or self._geom != geom:
-            pair = ServingPair("engine", self.engine, self.policy,
-                               mode_policy=self.cfg.mode_policy)
-            self.session = pool_session(self.cfg, pair, geom)
-            self._geom = geom
-        return self.session
-
     def run(self) -> list[ServeResult]:
         """Drain the queue wave by wave; returns per-request results (see
         :func:`wave_results`). Every member of a wave is admitted with the
@@ -572,7 +568,15 @@ class WaveSpecDecodeServer:
             return self.results
         pending = sorted(self.queue, key=lambda r: r.arrival_s)
         self.queue = []
-        sess = self._wave_session(pending)
+        pair = ServingPair("engine", self.engine, self.policy,
+                           mode_policy=self.cfg.mode_policy)
+        self.session = open_session(self.cfg, pair, pending)
+        with self.session as sess:
+            self._waves(pending, sess)
+        return self.results
+
+    def _waves(self, pending: list[ServeRequest],
+               sess: DecodeSession) -> None:
         clock = _ArrivalClock()
         while pending:
             now = clock.now()
@@ -597,4 +601,3 @@ class WaveSpecDecodeServer:
                 rows.append((tokens, rec.bits))
             self.results.extend(wave_results(wave, rows, wave_t0,
                                              first_tok_s, clock.now()))
-        return self.results

@@ -159,6 +159,9 @@ def test_process_pairs_match_reference_deployment(alarm):
         # two waves per pair; the second ran under the capture guard
         assert row["process"] and row["waves"] == 2
         assert row["requests"] == 4 and row["messages_sent"] > 0
+        # both hosts count the rounds of both waves (a wave's session
+        # counts only its own)
+        assert row["iterations"] == row["draft_rounds"] > 0
     assert all(p.poll() is not None for pair in dep.pairs
                for p in pair.host.procs)
     assert _children() - before == set()

@@ -70,6 +70,13 @@ def test_checks_cover_the_topology_and_the_hosts():
     assert {"repro_torch.topology", "repro_torch.distributed.host"} <= names
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.core.pool"])
+def test_checks_cover_the_model_families_and_the_pools(module):
+    """… and the MoE block and the engine-owned slot pools."""
+    assert module in {m for m, _ in _modules()}
+
+
 def test_engine_without_device_raises_on_a_cpu_machine():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -18,8 +18,10 @@ session on the same weights:
   frozen to its virtual part (compute takes no time), so the overlap the
   protocol buys is a function of the message sequence alone.
 
-Families: dense, paged (block size 4), int8 paged and ssm; transports:
-in-process, emulated on the virtual clock, socket loopback. Then the host
+Families: dense, paged (block size 4), int8 paged and ssm on in-process,
+emulated-on-the-virtual-clock and socket-loopback transports; the hybrid
+(a Mamba2 backbone with a shared attention block) in-process and on the
+link. Then the host
 mirror of ``slot_stop_mask`` against the device rule, EOS and budgets that
 end inside a window, AWC's ``pipe_hit_recent`` feature, the step keys and
 captured steps flat over hits and misses, the constructor gates, sampled
@@ -60,6 +62,11 @@ DENSE = dict(name="t", arch_type="dense", n_layers=2, d_model=64, n_heads=4,
 SSM = dict(name="ts", arch_type="ssm", n_layers=2, d_model=64, n_heads=0,
            n_kv_heads=0, d_ff=0, vocab=128, ssm_state=16, ssm_head_dim=16,
            ssm_chunk=8, dtype="float32", remat=False, tie_embeddings=True)
+# the tiny hybrid of tests/test_torch_ssm.py
+HYBRID = dict(name="th", arch_type="hybrid", n_layers=4, d_model=64,
+              n_heads=4, n_kv_heads=4, d_ff=128, head_dim=16, vocab=128,
+              ssm_state=16, ssm_head_dim=16, ssm_chunk=8, attn_every=2,
+              dtype="float32", remat=False)
 NOISE = 0.02
 GMAX = 6
 CAP = 32
@@ -99,7 +106,8 @@ def noised_pair(kw, seed: int = 2, noise: float = NOISE):
 
 @pytest.fixture(scope="module")
 def engines():
-    return {"dense": noised_pair(DENSE), "ssm": noised_pair(SSM)}
+    return {"dense": noised_pair(DENSE), "ssm": noised_pair(SSM),
+            "hybrid": noised_pair(HYBRID)}
 
 
 PROMPTS = [np.random.default_rng(4).integers(0, 128, n).astype(np.int32)
@@ -186,7 +194,8 @@ def reference(engines, family, layout="dense", **kw):
 CASES = [(family, layout, kind)
          for family, layout in (("dense", "dense"), ("dense", "paged"),
                                 ("dense", "int8"), ("ssm", "dense"))
-         for kind in ("inproc", "link", "socket")]
+         for kind in ("inproc", "link", "socket")] + [
+    ("hybrid", "dense", kind) for kind in ("inproc", "link")]
 
 
 @pytest.mark.parametrize("family,layout,kind", CASES,

@@ -259,31 +259,72 @@ def test_two_pair_deployment_matches_reference():
     assert engines[0].target_params is engines[1].target_params
 
 
-def test_wave_server_matches_reference():
-    t_np = jax.device_get(JModel(JCfg(**TARGET)).init_params(
-        jax.random.PRNGKey(1)))
-    d_np = jax.device_get(JModel(JCfg(**DRAFT)).init_params(
-        jax.random.PRNGKey(2)))
-    jeng = JEngine(JCfg(**DRAFT), JCfg(**TARGET),
+SSM_PAIR = dict(name="ts", arch_type="ssm", n_layers=2, d_model=64,
+                n_heads=0, n_kv_heads=0, d_ff=0, vocab=128, ssm_state=16,
+                ssm_head_dim=16, ssm_chunk=8, dtype="float32", remat=False,
+                tie_embeddings=True)
+
+
+def _wave_pair(pair: str):
+    """(reference engine, port engine): the random tiny pair, or a target
+    (dense or ssm) under its noised copy (N(0, (σ·std)²) per tensor, σ
+    0.02 dense and 0.2 ssm), whose acceptance lies strictly between 0 and
+    1."""
+    if pair == "random":
+        d_kw, t_kw = DRAFT, TARGET
+        t_np = jax.device_get(JModel(JCfg(**TARGET)).init_params(
+            jax.random.PRNGKey(1)))
+        d_np = jax.device_get(JModel(JCfg(**DRAFT)).init_params(
+            jax.random.PRNGKey(2)))
+    else:
+        d_kw = t_kw = TARGET if pair == "noised" else SSM_PAIR
+        t_np = jax.device_get(JModel(JCfg(**t_kw)).init_params(
+            jax.random.PRNGKey(1)))
+        rng = np.random.default_rng(5)
+        sigma = 0.02 if pair == "noised" else 0.2
+        d_np = jax.tree.map(lambda a: (a + sigma * a.std() * rng.normal(
+            size=a.shape)).astype(a.dtype) if a.ndim else a, t_np)
+    jeng = JEngine(JCfg(**d_kw), JCfg(**t_kw),
                    draft_params=jax.tree.map(jnp.asarray, d_np),
                    target_params=jax.tree.map(jnp.asarray, t_np),
                    temperature=0.0, key=jax.random.PRNGKey(0))
-    teng = SpecDecodeEngine(TCfg(**DRAFT), TCfg(**TARGET),
+    teng = SpecDecodeEngine(TCfg(**d_kw), TCfg(**t_kw),
                             draft_params=params_from_numpy(d_np, "cpu"),
                             target_params=params_from_numpy(t_np, "cpu"),
                             device="cpu")
-    ref = _serve(JWave(jeng, JStatic(3), JServerConfig(max_batch=2)),
-                 _requests(JRequest, n=5))
-    ours = _serve(WaveSpecDecodeServer(teng, StaticWindowPolicy(3),
-                                       ServerConfig(max_batch=2)),
-                  _requests(ServeRequest, n=5))
+    return jeng, teng
+
+
+@pytest.mark.parametrize("pair", ["random", "noised", "ssm"])
+def test_wave_server_matches_reference(pair):
+    """The wave server at static γ 3: tokens and per-request acceptance
+    rates equal the reference wave server's, on the random pair, a noised
+    dense pair and a noised ssm pair (acceptance strictly between 0 and 1
+    on the noised ones)."""
+    jeng, teng = _wave_pair(pair)
+
+    def rows(server, make):
+        for r in _requests(make, n=5):
+            server.submit(r)
+        return {r.request_id: (np.asarray(r.tokens).tolist(),
+                               r.acceptance_rate) for r in server.run()}
+
+    ref = rows(JWave(jeng, JStatic(3), JServerConfig(max_batch=2)),
+               JRequest)
+    ours = rows(WaveSpecDecodeServer(teng, StaticWindowPolicy(3),
+                                     ServerConfig(max_batch=2)),
+                ServeRequest)
     assert ours == ref
+    if pair != "random":
+        rates = [a for _, a in ours.values()]
+        assert 0 < sum(rates) < len(rates), rates
 
 
 def test_wave_server_keeps_one_session(monkeypatch):
-    """Every wave of a stream, and a second stream of the same geometry,
-    admits into one session (its steps are built and captured once); the
-    second stream's tokens equal the first's."""
+    """Every wave of a stream admits into one session, and a second stream
+    of the same geometry leases that session's pool from the engine: the
+    steps are built (and on the card captured) once; the second stream's
+    tokens equal the first's."""
     from repro_torch.serving import server as srv_mod
     built = []
 
@@ -301,8 +342,13 @@ def test_wave_server_keeps_one_session(monkeypatch):
     first = _serve(wave, _requests(ServeRequest, n=5))
     sess = wave.session
     assert built == [2] and sess.iterations > 0
+    (pool,) = [p for ps in teng.pools.values() for p in ps]
+    steps = dict(pool.steps)
+    assert set(steps) == {"round", "insert"} and not pool.leased
     again = _serve(wave, _requests(ServeRequest, n=5))
-    assert built == [2] and wave.session is sess
+    assert built == [2, 2] and wave.session is not sess
+    assert [p for ps in teng.pools.values() for p in ps] == [pool]
+    assert pool.steps == steps
     assert again == first and len(first) == 5
 
 
