@@ -63,9 +63,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               tokens (== target greedy); at T 1.0 two ``generate(seed=5)``
               give equal tokens; two live sessions hold two pools; TTFT of
               a cold and a warm bf16 server at QWEN_CUT side by side; then
-              the bf16 qwen dense static γ 4 serve at QWEN_CUT depth eager
-              and captured back to back (walls, TPOT, device busy share,
-              equal launch counts);
+              the bf16 qwen dense static γ 4 serve at QWEN_CUT depth (8
+              requests × 16 tokens) eager and captured back to back (walls,
+              TPOT, device busy share, equal launch counts);
 6. distributed — the draft/target split, half-duplex rounds over a
               transport, every worker program captured once per session:
               float32 at the exact phases' depths, qwen3-14b ← qwen2.5-3b
@@ -163,7 +163,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               over 1500 frames == target greedy in float32, a second call
               capturing nothing, bf16 timed; internvl2-76b text-only at the
               published widths, float32 depth 2 ← 1 == target greedy, a
-              live frontend refused, bf16 depth 4 ← 1 timed.
+              live frontend refused, bf16 depth 4 ← 1 timed;
+13. fleet   — ``examples/fleet_cluster.json`` (qwen3-14b shared ← two
+              qwen2.5-3b drafts over 2 ms and 40 ms, the smart router, its
+              8-request three-class burst trace with SLOs) through
+              ``launch.serve --topology --full-size`` in bf16 at the
+              published depth: every request served with its output
+              length, exact B1 launches, each step captured once per pair,
+              the SLO report; the same spec in f32 at QWEN_CUT under the
+              smart and least-loaded routers == target greedy; SLO shedding
+              (16 requests, a chat TTFT SLO of 1 ms): shed rows empty,
+              served rows == target greedy, the report counting the shed;
+              an ``ElasticPairPool`` of ``cluster_2pair_procs.json``'s
+              process pair (f32, QWEN_CUT) scaling from one pair to two
+              under a 12-request burst == target greedy, every host shut
+              down; DSD-Sim on the spec under both routers beside the real
+              per-pair counts (printed, not gated).
 The decode rounds of every chunk run under
 ``torch.cuda.set_sync_debug_mode("error")`` (all but the one call per
 session step that captures it: capture synchronizes the device); a
@@ -190,7 +205,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "exact", "capture", "distributed",
           "serve", "exact_ssm", "serve_ssm", "pipeline", "topology",
-          "families")
+          "families", "fleet")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
@@ -2218,7 +2233,8 @@ def phase_capture(torch, kernels):
 
 def eager_against_captured(torch, kernels) -> None:
     """The qwen3-14b ← qwen2.5-3b dense static γ 4 serve (bf16, QWEN_CUT
-    depth, the smoke's stream) through the launcher, eager
+    depth, the smoke's 8 requests at 16 new tokens each, half its 32, so
+    that the two profiled runs stay short) through the launcher, eager
     (``--no-capture``) then captured, back to back; then each again under
     torch.profiler for its device time. Busy share = profiled device ms ÷
     the unprofiled wall (same rounds, same kernels). Launch counts must
@@ -2227,7 +2243,7 @@ def eager_against_captured(torch, kernels) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     argv = ["--target", "qwen3-14b", "--draft", "qwen2.5-3b", "--full-size",
-            "--max-batch", "4", "--requests", "8", "--max-new", "32",
+            "--max-batch", "4", "--requests", "8", "--max-new", "16",
             "--gamma-max", str(GAMMA_MAX), "--seed", "0", "--json",
             "--policy", "static", "--gamma", "4"]
     modes = (("eager", ["--no-capture"]), ("captured", []))
@@ -3960,14 +3976,10 @@ def phase_pipeline(torch, kernels) -> dict:
     return totals
 
 
-def _spec_requests(np, spec, vocab: int) -> list:
+def _spec_requests(spec, vocab: int) -> list:
     """The request stream ``launch.serve`` makes from a spec's workload."""
-    from repro_torch.serving import ServeRequest
-    wl = spec.workload
-    rng = np.random.default_rng(spec.seed)
-    return [ServeRequest(i, rng.integers(0, vocab, int(rng.integers(
-        wl.prompt_lo, wl.prompt_hi))).astype(np.int32), wl.max_new)
-        for i in range(wl.num_requests)]
+    from repro_torch.launch.serve import spec_requests
+    return spec_requests(spec, vocab)
 
 
 def _cut_f32(names) -> dict:
@@ -4058,7 +4070,7 @@ def topology_cluster_f32(torch, kernels, card) -> dict:
     dep = build_deployment(spec, model_configs=_cut_f32(
         ("qwen3-14b", "qwen2.5-3b")), reduced=False, device=dev,
         sleep_links=False)
-    reqs = _spec_requests(np, spec, dep.vocab)
+    reqs = _spec_requests(spec, dep.vocab)
     srv = dep.build_server()
     for r in reqs:
         srv.submit(dataclasses.replace(r))
@@ -4145,7 +4157,7 @@ def topology_process_pair(torch, kernels, card) -> dict:
     try:
         t_up = time.perf_counter() - t0
         srv = dep.build_server()
-        for r in _spec_requests(np, spec, dep.vocab):
+        for r in _spec_requests(spec, dep.vocab):
             srv.submit(r)
         t1 = time.perf_counter()
         res = srv.run()
@@ -4186,7 +4198,7 @@ def topology_procs_f32(torch, kernels, card) -> dict:
     cfgs = _cut_f32(("qwen3-14b", "qwen2.5-3b"))
     local, vocab = in_process_shares(torch, procs, cfgs)
     torch.cuda.empty_cache()
-    reqs = _spec_requests(np, procs, vocab)
+    reqs = _spec_requests(procs, vocab)
     dep = build_deployment(procs, model_configs=cfgs, reduced=False,
                            device=torch.device("cuda", 0),
                            host_timeout_s=600.0)
@@ -4230,7 +4242,7 @@ def in_process_shares(torch, spec, cfgs) -> tuple:
         p.process = False
     dep = build_deployment(inproc, model_configs=cfgs, reduced=False,
                            device=torch.device("cuda", 0), sleep_links=False)
-    reqs = _spec_requests(np, spec, dep.vocab)
+    reqs = _spec_requests(spec, dep.vocab)
     local = {}
     for i, pair in enumerate(dep.pairs):
         srv = SpecDecodeServer(cfg=dep.server_config(), pairs=[pair])
@@ -4261,6 +4273,359 @@ def check_hosts(row: dict, L_d: int, L_t: int, admissions: int,
         if got != want[side]:
             problems.append(f"{side} B1 {got}, expected {want[side]}")
     return problems
+
+
+# ------------------------------------------------------------------ fleet
+
+FLEET_KERNELS = ("decode_attn",)
+FLEET_JSON = ROOT / "examples" / "fleet_cluster.json"
+FLEET_SHED_REQUESTS = 16       # the shedding trace's length
+FLEET_SHED_SLO_MS = 1.0        # the chat class's TTFT SLO there: no card
+                               # prefills and crosses a link in 1 ms
+ELASTIC_REQUESTS = 12          # burst at t = 0 into the elastic pool
+
+
+def phase_fleet(torch, kernels) -> dict:
+    """Fleet serving: ``examples/fleet_cluster.json`` (one shared
+    qwen3-14b node ← two qwen2.5-3b drafts over 2 ms and 40 ms links, the
+    smart router, an 8-request three-class burst trace with SLOs) through
+    ``launch.serve --topology --full-size`` in bf16 at the published
+    widths and depth: every request served with its class's output length,
+    exact B1 launches and graphs per pair, the SLO report; the same spec in
+    f32 at QWEN_CUT under the smart and the least-loaded router: tokens ==
+    target greedy; SLO shedding on a 16-request trace whose chat TTFT SLO
+    no card meets: shed rows empty, served rows == target greedy, shed +
+    served == submitted, the report counting the shed; an elastic pool of
+    ``cluster_2pair_procs.json``'s process pair (f32, QWEN_CUT) scaling
+    from one pair to two under a burst: every request served == target
+    greedy, every host shut down. Last, DSD-Sim on the bf16 spec under
+    both routers beside the real per-pair counts (printed, not gated: the
+    sim's times are for its own hardware catalog). Returns the launch
+    counts (the elastic hosts' included)."""
+    import gc
+    import numpy as np
+    from repro_torch.topology import ClusterSpec, build_deployment
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smi_line()
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    real = {}
+    _add(totals, fleet_full(torch, kernels, card, real))
+    torch.cuda.empty_cache()
+    spec = ClusterSpec.load(str(FLEET_JSON))
+    dep = build_deployment(spec, model_configs=_cut_f32(
+        ("qwen3-14b", "qwen2.5-3b")), reduced=False,
+        device=torch.device("cuda", 0), sleep_links=False)
+    greedy = {}
+    _add(totals, fleet_f32(torch, np, kernels, dep, greedy, real))
+    _add(totals, fleet_shed(torch, np, kernels, dep, greedy))
+    del dep, greedy
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(totals, fleet_elastic(torch, np, card))
+    torch.cuda.empty_cache()
+    fleet_sim(real)
+    return totals
+
+
+def _fleet_greedy(torch, dep, greedy: dict, reqs) -> None:
+    """Target-only greedy tokens of each request not yet in ``greedy``
+    (keyed by prompt and length), on the deployment's target node."""
+    eng = dep.pairs[0].engine
+    dev = eng.target_params["embed"].device
+    for r in reqs:
+        key = (r.prompt.tobytes(), r.max_new_tokens)
+        if key not in greedy:
+            greedy[key] = _greedy(torch, eng.target, eng.target_params,
+                                  r.prompt, r.max_new_tokens,
+                                  len(r.prompt) + r.max_new_tokens + 8,
+                                  dev)[0]
+
+
+def _fleet_counts(results, pair_ids) -> dict:
+    """Requests per pair, and the SLO-bearing ones per pair."""
+    out = {"requests": {p: 0 for p in pair_ids},
+           "slo_bearing": {p: 0 for p in pair_ids}}
+    for r in results:
+        if r.shed:
+            continue
+        out["requests"][r.pair_id] += 1
+        if r.slo_ttft_ms > 0 or r.slo_tpot_ms > 0:
+            out["slo_bearing"][r.pair_id] += 1
+    return out
+
+
+def fleet_full(torch, kernels, card, real: dict) -> dict:
+    """fleet_cluster.json in bf16 at the published widths and depth through
+    the launcher, its own trace (8 requests, smart router), on cold
+    engines; then the same stream again through a second server on the
+    deployment's warm engines. Each run: every request served with its
+    output length, B1 launches = Σ pairs (R − F)·(γ_max·L_d + L_t) + (F +
+    A)·(L_d + L_t); the cold run captures each step once per pair's pool,
+    the warm run captures and warms up nothing (it replays every call)."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = serve.run(["--topology", str(FLEET_JSON), "--full-size",
+                     "--json"])
+    cold = _fleet_served(kernels, card, "cold", out.server, out.results,
+                         out.requests, out.deployment, out.summary, {}, t0)
+    real["smart bf16 full depth"] = _fleet_counts(
+        out.results, [p.pair_id for p in out.server.pairs])
+    t0 = time.perf_counter()
+    dep, reqs = out.deployment, out.requests
+    before = {p.pair_id: graph_counts(p.engine) for p in dep.pairs}
+    srv = dep.build_server()
+    for r in reqs:
+        srv.submit(dataclasses.replace(r))
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    res = srv.run()
+    wall = time.perf_counter() - t1
+    tokens = sum(len(r.tokens) for r in res)
+    summary = {"requests": len(res), "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall,
+               "mean_ttft_ms": sum(r.ttft_ms for r in res) / len(res),
+               "mean_tpot_ms": sum(r.tpot_ms for r in res) / len(res),
+               "pairs": srv.pair_summaries()}
+    cold_tokens = {r.request_id: r.tokens.tolist() for r in out.results}
+    warm = _fleet_served(kernels, card, "warm", srv, res, reqs, dep,
+                         summary, before, t0, same_tokens_as_cold=all(
+                             r.tokens.tolist() == cold_tokens[r.request_id]
+                             for r in res))
+    _add(cold, warm)
+    return cold
+
+
+def _fleet_served(kernels, card, name, srv, results, reqs, dep, s,
+                  before: dict, t0, **extra) -> dict:
+    """Checks and the line of one bf16 fleet run: complete outputs, exact
+    B1 launches, graphs per pair (``before``: each engine's graph counts
+    before a warm run, which must add replays only). Returns the
+    launches."""
+    launches = dict(kernels.LAUNCHES)
+    spec = dep.spec
+    want_l, pairs, problems = 0, {}, []
+    for pair, sess in zip(srv.pairs, srv._sessions):
+        eng, row = pair.engine, s["pairs"][pair.pair_id]
+        L_d, L_t = eng.draft_cfg.n_layers, eng.target_cfg.n_layers
+        R, F, A = sess.iterations, sess.fused_iterations, row["requests"]
+        want_l += ((R - F) * (spec.serving.gamma_max * L_d + L_t)
+                   + (F + A) * (L_d + L_t))
+        calls = split_calls(R, F, A, False)
+        if pair.pair_id in before:
+            want_g = {"captured": 0, "warm_ups": 0,
+                      "replays": sum(calls.values())}
+            got_g = graphs_since(eng, before[pair.pair_id])
+        else:
+            want_g, got_g = want_step_graphs(calls), graph_counts(eng)
+        pairs[pair.pair_id] = {k: row[k] for k in (
+            "requests", "iterations", "fused_fraction", "recent_rtt_ms",
+            "ttft_p95_ms", "shed")}
+        pairs[pair.pair_id].update(graphs=got_g, expected_graphs=want_g)
+        if got_g != want_g:
+            problems.append(f"{pair.pair_id}: graphs {got_g}, expected "
+                            f"{want_g}")
+    by_id = {r.request_id: r for r in reqs}
+    full = (len(results) == len(reqs) and all(
+        len(r.tokens) == by_id[r.request_id].max_new_tokens
+        and (r.tokens >= 0).all() and (r.tokens < dep.vocab).all()
+        for r in results))
+    emit({"phase": "fleet", "run": f"fleet_cluster bf16 full depth, {name}",
+          "card": card, **{k: s[k] for k in (
+              "requests", "tokens", "wall_s", "tokens_per_s", "mean_ttft_ms",
+              "mean_tpot_ms")}, "pairs": pairs,
+          "slo": slo_of(results), "launches": launches,
+          "expected_launches": {"decode_attn": want_l},
+          "all_full_in_range": full, **extra,
+          "seconds": time.perf_counter() - t0})
+    if problems or not full or {k: n for k, n in launches.items()
+                                if n} != {"decode_attn": want_l}:
+        fail(f"fleet {name}: {problems}, full {full}, launches {launches} "
+             f"(expected B1 {want_l})")
+    return launches
+
+
+def slo_of(results) -> dict:
+    from repro_torch.fleet import slo_report
+    from repro_torch.fleet.workload import serve_results_rows
+    return slo_report(serve_results_rows(results))
+
+
+def fleet_f32(torch, np, kernels, dep, greedy: dict, real: dict) -> dict:
+    """fleet_cluster.json in f32 at QWEN_CUT, its trace under the smart and
+    the least-loaded router on one deployment: every request's tokens ==
+    the target's greedy decode."""
+    from repro_torch.serving import PAIR_ROUTERS, SpecDecodeServer
+    t0 = time.perf_counter()
+    reqs = _spec_requests(dep.spec, dep.vocab)
+    _fleet_greedy(torch, dep, greedy, reqs)
+    kernels.reset_launches()
+    rows, problems = {}, []
+    for router in ("smart", "least-loaded"):
+        srv = SpecDecodeServer(cfg=dep.server_config(), pairs=dep.pairs,
+                               router=PAIR_ROUTERS[router]())
+        for r in reqs:
+            srv.submit(dataclasses.replace(r))
+        res = srv.run()
+        same = len(res) == len(reqs) and all(np.array_equal(
+            r.tokens, greedy[(q.prompt.tobytes(), q.max_new_tokens)])
+            for q, r in zip(reqs, sorted(res, key=lambda x: x.request_id)))
+        counts = _fleet_counts(res, [p.pair_id for p in dep.pairs])
+        real[f"{router} f32 QWEN_CUT"] = counts
+        rows[router] = dict(counts, equal=same)
+        if not same:
+            problems.append(router)
+    emit({"phase": "fleet", "check": "fleet_cluster f32 QWEN_CUT == target "
+          "greedy under both routers", "routers": rows,
+          "seconds": time.perf_counter() - t0})
+    if problems:
+        fail(f"fleet f32: tokens differ from greedy under {problems}")
+    return dict(kernels.LAUNCHES)
+
+
+def fleet_shed(torch, np, kernels, dep, greedy: dict) -> dict:
+    """SLO shedding at QWEN_CUT (f32): the spec's trace grown to 16
+    requests with the chat class's TTFT SLO at 1 ms, smart router,
+    ``slo_admission="shed"`` after 2 retirements per pair. Shed rows carry
+    no tokens, served rows equal greedy, shed + served == submitted, and
+    ``slo_report`` counts every shed row."""
+    from repro_torch.fleet import SmartPairRouter
+    from repro_torch.serving import SpecDecodeServer
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(dep.spec)
+    spec.workload = dataclasses.replace(spec.workload)
+    trace = spec.workload.trace = dataclasses.replace(
+        spec.workload.trace, num_requests=FLEET_SHED_REQUESTS,
+        classes=[dataclasses.replace(c) for c in
+                 spec.workload.trace.classes])
+    for c in trace.classes:
+        if c.name == "chat":
+            c.slo_ttft_ms = FLEET_SHED_SLO_MS
+    reqs = _spec_requests(spec.validate(), dep.vocab)
+    _fleet_greedy(torch, dep, greedy, reqs)
+    kernels.reset_launches()
+    srv = SpecDecodeServer(cfg=dep.server_config(slo_admission="shed",
+                                                 slo_min_samples=2),
+                           pairs=dep.pairs, router=SmartPairRouter())
+    for r in reqs:
+        srv.submit(dataclasses.replace(r))
+    res = srv.run()
+    by_id = {r.request_id: r for r in reqs}
+    shed = [r for r in res if r.shed]
+    served = [r for r in res if not r.shed]
+    rep = slo_of(res)
+    reported = sum(pc["shed"] for pc in rep["per_class"].values())
+    empty = all(len(r.tokens) == 0 for r in shed)
+    same = all(np.array_equal(r.tokens, greedy[(
+        by_id[r.request_id].prompt.tobytes(),
+        by_id[r.request_id].max_new_tokens)]) for r in served)
+    emit({"phase": "fleet", "check": "SLO shedding f32 QWEN_CUT",
+          "submitted": len(reqs), "shed": len(shed), "served": len(served),
+          "shed_by_class": {c: pc["shed"] for c, pc in
+                            rep["per_class"].items()},
+          "shed_by_pair": {p: row["shed"] for p, row in
+                           srv.pair_summaries().items()},
+          "attainment": rep["attainment"], "shed_rows_empty": empty,
+          "served_equal_greedy": same,
+          "seconds": time.perf_counter() - t0})
+    if not (shed and empty and same and reported == len(shed)
+            and len(shed) + len(served) == len(reqs)
+            and sorted(r.request_id for r in res) == sorted(by_id)):
+        fail(f"fleet shed: shed {len(shed)} (reported {reported}), served "
+             f"{len(served)} of {len(reqs)}, empty {empty}, equal {same}")
+    return dict(kernels.LAUNCHES)
+
+
+def fleet_elastic(torch, np, card) -> dict:
+    """An elastic pool of cluster_2pair_procs.json's first process pair in
+    f32 at QWEN_CUT, one to two pairs, a 12-request burst at t = 0 (more
+    than ``scale_up_depth`` × capacity per pair): at least one scale-up,
+    every request served == target greedy, every host process gone after
+    ``shutdown``. Returns the hosts' launch counts."""
+    from repro_torch.fleet import ElasticPairPool
+    from repro_torch.models.model import build_model
+    from repro_torch.topology import ClusterSpec, node_configs, node_seed
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    spec = ClusterSpec.load(str(ROOT / "examples"
+                                / "cluster_2pair_procs.json"))
+    spec.workload.num_requests = ELASTIC_REQUESTS
+    cfgs = _cut_f32(("qwen3-14b", "qwen2.5-3b"))
+    template = spec.pairs[0]
+    t_cfg = node_configs(spec, cfgs)[template.target]
+    reqs = _spec_requests(spec, t_cfg.vocab)
+    target = build_model(t_cfg, dev)
+    params = target.init_params(node_seed(spec, template.target))
+    greedy = {r.request_id: _greedy(torch, target, params, r.prompt,
+                                    r.max_new_tokens, 96, dev)[0]
+              for r in reqs}
+    del target, params
+    torch.cuda.empty_cache()
+    startup = []
+
+    def spawn(pair_spec):
+        t = time.perf_counter()
+        handle = pool._default_spawn(pair_spec)
+        startup.append(time.perf_counter() - t)
+        return handle
+
+    pool = ElasticPairPool(spec, min_pairs=1, max_pairs=2,
+                           model_configs=cfgs, spawn_fn=spawn,
+                           device="cuda")
+    try:
+        t1 = time.perf_counter()
+        res = pool.run(reqs)
+        wall = time.perf_counter() - t1
+        summ = pool.summary()
+        rows = {pid: h.summary() for pid, h in pool.handles.items()}
+    finally:
+        pool.shutdown()
+    alive = [pid for pid, h in pool.handles.items()
+             if any(p.poll() is None for p in h.procs)]
+    same = (sorted(r.request_id for r in res) == sorted(greedy)
+            and all(np.array_equal(r.tokens, greedy[r.request_id])
+                    for r in res))
+    emit({"phase": "fleet", "run": "elastic pool f32 QWEN_CUT", "card": card,
+          "events": summ["events"], "pairs_spawned": summ["pairs_spawned"],
+          "startup_s": startup, "served": summ["served"],
+          "max_concurrent_pairs": summ["max_concurrent_pairs"],
+          "wall_s": wall, "equal_greedy": same, "hosts_alive": alive,
+          "seconds": time.perf_counter() - t0})
+    if summ["pairs_spawned"] < 2 or not same or alive:
+        fail(f"fleet elastic: spawned {summ['pairs_spawned']}, equal "
+             f"{same}, hosts alive {alive}")
+    totals: dict = {}
+    for row in rows.values():
+        for side in ("target_launches", "draft_launches"):
+            _add(totals, row[side])
+    return totals
+
+
+def fleet_sim(real: dict) -> None:
+    """DSD-Sim on fleet_cluster.json under both pair routers: lane counts
+    and SLO-bearing requests on the LAN lane, beside the real runs'
+    per-pair counts (the order bench_fleet compares; printed only)."""
+    from repro_torch.topology import ClusterSpec, build_simulation
+    spec = ClusterSpec.load(str(FLEET_JSON))
+    ids = [p.id for p in spec.pairs]
+    sim = {}
+    for router in ("smart", "least-loaded"):
+        an = build_simulation(spec, pair_router=router).run()
+        counts = {"requests": {p: 0 for p in ids},
+                  "slo_bearing": {p: 0 for p in ids}}
+        for m in an.requests.values():
+            counts["requests"][ids[m.drafter_id]] += 1
+            if m.slo_ttft_ms > 0 or m.slo_tpot_ms > 0:
+                counts["slo_bearing"][ids[m.drafter_id]] += 1
+        sim[router] = dict(counts, attainment=an.summary()["slo"][
+            "attainment"])
+    lan = ids[0]
+    more = {"sim": sim["smart"]["slo_bearing"][lan]
+            > sim["least-loaded"]["slo_bearing"][lan],
+            "real f32": real["smart f32 QWEN_CUT"]["slo_bearing"][lan]
+            > real["least-loaded f32 QWEN_CUT"]["slo_bearing"][lan]}
+    emit({"phase": "fleet", "check": "sim beside real (printed, not gated)",
+          "sim": sim, "real": real, "smart_more_slo_on_lan": more})
 
 
 def main(argv=None) -> int:
@@ -4319,7 +4684,8 @@ def main(argv=None) -> int:
     for name, phase, main_path in (
             ("pipeline", phase_pipeline, PIPE_KERNELS),
             ("topology", phase_topology, TOPO_KERNELS),
-            ("families", phase_families, FAMILY_KERNELS)):
+            ("families", phase_families, FAMILY_KERNELS),
+            ("fleet", phase_fleet, FLEET_KERNELS)):
         t0 = time.perf_counter()
         if name in phases:
             phase_totals = phase(torch, kernels)

@@ -16,8 +16,11 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 # fused-mode tokens stream edge-ward one control round trip per this many
-# committed tokens: the link model's constant
-from ...sim.network import DEFAULT_FUSED_CHUNK
+# committed tokens: mirrors repro_torch.sim.network.DEFAULT_FUSED_CHUNK, not
+# imported because core.window → core.awc → this module loads while
+# repro_torch.sim.scheduler (which imports core.window) may be mid-import
+# (as in the reference); tests/test_torch_sim.py holds the two equal
+DEFAULT_FUSED_CHUNK = 8
 
 # [q_depth, alpha_recent, rtt_ms, tpot_ms, gamma_prev, pipe_hit_recent,
 #  branches_prev]

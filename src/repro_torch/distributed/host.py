@@ -623,7 +623,8 @@ class PairHostHandle:
     def serve(self, reqs) -> list:
         """Drive a request bucket wave by wave (a process-backed pair's
         share of ``SpecDecodeServer.run``); returns
-        :class:`repro_torch.serving.ServeResult` rows."""
+        :class:`repro_torch.serving.ServeResult` rows, each with its
+        request's class and SLOs."""
         from ..serving.server import wave_results
         results = []
         t_start = time.perf_counter()
@@ -651,10 +652,14 @@ class PairHostHandle:
             seqs = out.get("acceptance_seqs") or []
             rows = [(tokens[i, :produced[i]], seqs[i] if i < len(seqs)
                      else []) for i in range(n_real)]
-            results += wave_results(
+            done = wave_results(
                 wave[:n_real], rows, wave_t0,
                 wave_t0 + float(out.get("prefill_s", 0.0)), wave_t1,
                 pair_id=self.pair_id)
+            for res, r in zip(done, wave):   # fleet class and SLOs ride along
+                res.request_class = r.request_class
+                res.slo_ttft_ms, res.slo_tpot_ms = r.slo_ttft_ms, r.slo_tpot_ms
+            results += done
         return results
 
     def stats(self) -> dict:

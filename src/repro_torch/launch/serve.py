@@ -64,6 +64,15 @@ propose, verify (+ advance for an ssm draft, + ingest once a fused round
 ran); pipelined: insert, propose, speculative propose, verify (+
 checkpoint and rollback for an ssm draft).
 
+A topology whose workload declares a fleet ``trace`` (request classes with
+per-class lengths and TTFT/TPOT SLOs, a load shape;
+``examples/fleet_cluster.json``) serves that trace's stream —
+:func:`repro_torch.fleet.workload.generate_requests` through
+:func:`~repro_torch.fleet.workload.fleet_serve_requests`, the stream
+:func:`repro_torch.topology.build_simulation` replays — and the summary's
+``slo`` block grades it (:func:`~repro_torch.fleet.workload.slo_report`).
+``serving.router: "smart"`` routes by link, acceptance and occupancy.
+
 A topology with ``process: true`` pairs spawns two worker hosts per pair
 (:mod:`repro_torch.distributed.host`, on ``--device``); the summary's
 ``pairs`` then carry each host pair's row. ``--server wave`` serves the
@@ -171,6 +180,29 @@ def spec_from_args(args) -> ClusterSpec:
     return spec.validate()
 
 
+def spec_requests(spec: ClusterSpec, vocab: int) -> list:
+    """The request stream of a spec's workload: its fleet trace's stream
+    (class, SLOs and arrival per request; the stream
+    :func:`~repro_torch.topology.build_simulation` replays), else the flat
+    surface's seeded prompts and Poisson arrivals."""
+    wl = spec.workload
+    if wl.trace is not None:
+        from ..fleet.workload import fleet_serve_requests, generate_requests
+        return fleet_serve_requests(generate_requests(wl.trace), vocab,
+                                    seed=spec.seed)
+    rng = np.random.default_rng(spec.seed)
+    arrival = 0.0
+    requests = []
+    for i in range(wl.num_requests):
+        plen = int(rng.integers(wl.prompt_lo, wl.prompt_hi))
+        if wl.rate_per_s > 0:
+            arrival += float(rng.exponential(1.0 / wl.rate_per_s))
+        requests.append(ServeRequest(
+            i, rng.integers(0, vocab, plen).astype(np.int32), wl.max_new,
+            arrival_s=arrival))
+    return requests
+
+
 @dataclass
 class ServeRun:
     summary: dict
@@ -202,18 +234,9 @@ def run(argv=None, *, node_params=None) -> ServeRun:
         server = deployment.build_server(
             paged_kv=args.paged_kv, kv_pool_blocks=args.kv_pool_blocks,
             capture=False if args.no_capture else None)
-        wl = spec.workload
-        rng = np.random.default_rng(spec.seed)
-        arrival = 0.0
-        requests = []
-        for i in range(wl.num_requests):
-            plen = int(rng.integers(wl.prompt_lo, wl.prompt_hi))
-            if wl.rate_per_s > 0:
-                arrival += float(rng.exponential(1.0 / wl.rate_per_s))
-            requests.append(ServeRequest(
-                i, rng.integers(0, deployment.vocab, plen).astype(np.int32),
-                wl.max_new, arrival_s=arrival))
-            server.submit(requests[-1])
+        requests = spec_requests(spec, deployment.vocab)
+        for r in requests:
+            server.submit(r)
         t0 = time.perf_counter()
         results = server.run()
         wall = time.perf_counter() - t0
@@ -257,6 +280,9 @@ def run(argv=None, *, node_params=None) -> ServeRun:
     }
     if not args.topology:
         summary["policy"] = args.policy
+    if spec.workload.trace is not None:
+        from ..fleet.workload import serve_results_rows, slo_report
+        summary["slo"] = slo_report(serve_results_rows(results))
     tr = deployment.pairs[0].transport
     if len(deployment.pairs) == 1 and tr is not None:
         # the one-pair launcher's flat link keys
@@ -291,6 +317,8 @@ def main(argv=None) -> int:
               f"e2e={s['mean_e2e_ms']:.0f}ms  "
               f"programs={s['step_programs']}  "
               f"graphs={s['captured_graphs']}"
+              + (f"  slo={s['slo']['attainment']:.2f}"
+                 if s.get("slo", {}).get("graded") else "")
               + (f"  link={s['transport']} rtt="
                  f"{s['link_recent_rtt_ms']:.2f}ms "
                  f"messages={s['link_messages']}" if "transport" in s

@@ -1,8 +1,8 @@
 """Serving substrate of the port: continuous slot-based request serving over
 per-pair persistent DecodeSessions with pluggable pair routing, process-
-backed pairs, and the wave-batched baseline."""
+backed pairs, SLO-aware admission, and the wave-batched baseline."""
 
 from .server import (PAIR_ROUTERS, LeastLoadedPairRouter, PairRouter,
                      RoundRobinPairRouter, ServeRequest, ServeResult,
-                     ServerConfig, ServingPair, SpecDecodeServer,
-                     WaveSpecDecodeServer)
+                     ServerConfig, ServingPair, SmartPairRouter,
+                     SpecDecodeServer, WaveSpecDecodeServer)

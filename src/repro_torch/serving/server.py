@@ -27,18 +27,24 @@ draft and a target worker process over a socket transport, and the server
 hands it the pair's share of the stream on a thread of its own, wave by
 wave (:meth:`SpecDecodeServer._run_process_backed`).
 
+Fleet traffic (:mod:`repro_torch.fleet`): a request may carry a class and
+TTFT/TPOT SLOs, and its result carries them back for ``slo_report``.
+``ServerConfig.slo_admission`` gates the head-of-line request between
+routing and admission: when the routed pair's rolling p95 TTFT (over the
+last ``slo_window`` retirements, once ``slo_min_samples`` are in) has
+drifted past the request's TTFT SLO, the request goes to the healthiest
+pair instead (``reroute``), or, with no healthy pair and ``shed``, is
+dropped with a zero-token result marked ``shed``. The α/link/queue-aware
+router :class:`~repro_torch.fleet.routing.SmartPairRouter` registers as
+``PAIR_ROUTERS["smart"]``.
+
 :class:`WaveSpecDecodeServer` keeps the wave-batched execution model (admit
 a wave, drain it, admit the next) as the measured baseline.
-
-SLO-aware admission and the smart router come with ROADMAP item A13.
 """
 
 from __future__ import annotations
 
-import bisect
-import math
 import time
-from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Protocol, Sequence
 
@@ -47,6 +53,7 @@ import numpy as np
 from ..core.engine import SpecDecodeEngine
 from ..core.session import DecodeSession
 from ..core.window import StaticWindowPolicy, WindowPolicy
+from ..fleet.stats import RollingQuantile
 
 
 @dataclass
@@ -55,6 +62,9 @@ class ServeRequest:
     prompt: np.ndarray           # (S,) int32
     max_new_tokens: int
     arrival_s: float = 0.0       # relative to the serve-loop start
+    request_class: str = ""      # fleet traffic class ("" = unclassified)
+    slo_ttft_ms: float = 0.0     # per-request TTFT target (0 = no SLO)
+    slo_tpot_ms: float = 0.0     # per-request TPOT target (0 = no SLO)
 
 
 @dataclass
@@ -67,6 +77,10 @@ class ServeResult:
     acceptance_rate: float
     queue_ms: float = 0.0        # arrival → admission start
     pair_id: str = ""            # draft–target pair that served the request
+    request_class: str = ""      # carried from the request (SLO grading)
+    slo_ttft_ms: float = 0.0
+    slo_tpot_ms: float = 0.0
+    shed: bool = False           # SLO admission dropped it (no tokens)
 
 
 def open_session(cfg: ServerConfig, pair: "ServingPair",
@@ -134,42 +148,13 @@ class ServerConfig:
     capture: Optional[bool] = None  # replay each session step from a CUDA
                                     # graph (None: on the card); False keeps
                                     # the card's steps eager
-
-
-class RollingQuantile:
-    """Sorted-window quantile estimator over the most recent ``size``
-    samples (arrival order evicts); NaN when empty."""
-
-    def __init__(self, size: int = 256):
-        self.size = int(size)
-        self._ring: deque[float] = deque()
-        self._sorted: list[float] = []
-
-    def push(self, v: float) -> None:
-        v = float(v)
-        if not math.isfinite(v):
-            return
-        if len(self._ring) >= self.size:
-            old = self._ring.popleft()
-            del self._sorted[bisect.bisect_left(self._sorted, old)]
-        self._ring.append(v)
-        bisect.insort(self._sorted, v)
-
-    def quantile(self, p: float) -> float:
-        s = self._sorted
-        if not s:
-            return math.nan
-        k = (len(s) - 1) * min(1.0, max(0.0, p))
-        lo, hi = int(math.floor(k)), int(math.ceil(k))
-        if lo == hi:
-            return s[lo]
-        return s[lo] + (s[hi] - s[lo]) * (k - lo)
-
-    def p50(self) -> float:
-        return self.quantile(0.5)
-
-    def p95(self) -> float:
-        return self.quantile(0.95)
+    slo_admission: str = "off"   # off | reroute | shed: when a pair's rolling
+                                 # p95 TTFT drifts past a request's class SLO,
+                                 # reroute it to a healthy pair (or shed it
+                                 # outright when none exists and mode=shed)
+    slo_min_samples: int = 8     # retirements per pair before SLO admission
+                                 # trusts that pair's rolling p95
+    slo_window: int = 256        # rolling-quantile window size per pair
 
 
 # -- pair routing ------------------------------------------------------------
@@ -212,6 +197,11 @@ PAIR_ROUTERS = {
     "least-loaded": LeastLoadedPairRouter,
     "round-robin": RoundRobinPairRouter,
 }
+
+# the α/link/queue-aware fleet router registers here too (late import:
+# repro_torch.fleet.routing is dependency-free, so this cannot cycle)
+from ..fleet.routing import SmartPairRouter  # noqa: E402
+PAIR_ROUTERS["smart"] = SmartPairRouter
 
 
 class _ArrivalClock:
@@ -268,8 +258,11 @@ class SpecDecodeServer:
         self.results: list[ServeResult] = []
         self._sessions: list[DecodeSession] = []
         self._served = [0] * len(self.pairs)
-        self._ttft_q = [RollingQuantile() for _ in self.pairs]
-        self._tpot_q = [RollingQuantile() for _ in self.pairs]
+        self._ttft_q = [RollingQuantile(self.cfg.slo_window)
+                        for _ in self.pairs]
+        self._tpot_q = [RollingQuantile(self.cfg.slo_window)
+                        for _ in self.pairs]
+        self._shed = [0] * len(self.pairs)
 
     def submit(self, req: ServeRequest) -> None:
         self.queue.append(req)
@@ -355,6 +348,11 @@ class SpecDecodeServer:
                 idx = self.router.route(arrived[0], self.pairs, frees)
                 if frees[idx] <= 0:
                     break
+                routed = self._apply_slo_admission(arrived, pending, idx,
+                                                   frees, clock)
+                if routed is None:
+                    continue    # head shed; retry with the next head
+                idx = routed
                 admitted_any = False
                 for r in self._select_admissions(arrived, frees[idx]):
                     # block-aware admission: a paged session may have a
@@ -399,8 +397,64 @@ class SpecDecodeServer:
                         acceptance_rate=(sum(bits) / len(bits)) if bits
                         else 0.0,
                         queue_ms=(admit_s - r.arrival_s) * 1e3,
-                        pair_id=self.pairs[idx].pair_id))
+                        pair_id=self.pairs[idx].pair_id,
+                        request_class=r.request_class,
+                        slo_ttft_ms=r.slo_ttft_ms,
+                        slo_tpot_ms=r.slo_tpot_ms))
         return self.results
+
+    # -- SLO-aware admission -------------------------------------------------
+
+    def _slo_risky(self, idx: int, req: ServeRequest) -> bool:
+        """Pair idx's rolling p95 TTFT has drifted past the request's SLO
+        (only once enough retirements have been observed to trust it)."""
+        if req.slo_ttft_ms <= 0:
+            return False
+        q = self._ttft_q[idx]
+        return (len(q) >= self.cfg.slo_min_samples
+                and q.p95() > req.slo_ttft_ms)
+
+    def _apply_slo_admission(self, arrived: list[ServeRequest],
+                             pending: list[ServeRequest], idx: int,
+                             frees: Sequence[int],
+                             clock: _ArrivalClock) -> Optional[int]:
+        """SLO gate between routing and admission for the head-of-line
+        request. Returns the (possibly rerouted) pair index, or None when
+        the head was shed (mode=shed, no healthy pair). With
+        ``slo_admission='off'`` this is the identity on ``idx``."""
+        if self.cfg.slo_admission == "off":
+            return idx
+        head = arrived[0]
+        if not self._slo_risky(idx, head):
+            return idx
+        # healthiest alternative with a free slot: unmeasured pairs count
+        # as healthy (no evidence of drift), measured ones need p95 <= SLO
+        best, best_p95 = None, None
+        for i in range(len(self.pairs)):
+            if i == idx or frees[i] <= 0 or self._slo_risky(i, head):
+                continue
+            p95 = self._ttft_q[i].p95()
+            key = p95 if len(self._ttft_q[i]) else 0.0
+            if best_p95 is None or key < best_p95:
+                best, best_p95 = i, key
+        if best is not None:
+            return best
+        if self.cfg.slo_admission != "shed":
+            return idx      # reroute mode: nowhere better, admit anyway
+        end_s = clock.now()
+        self._shed[idx] += 1
+        pending.remove(head)
+        arrived.remove(head)
+        self.results.append(ServeResult(
+            request_id=head.request_id, tokens=np.zeros(0, np.int32),
+            ttft_ms=float("inf"), tpot_ms=0.0,
+            e2e_ms=(end_s - head.arrival_s) * 1e3, acceptance_rate=0.0,
+            queue_ms=(end_s - head.arrival_s) * 1e3,
+            pair_id=self.pairs[idx].pair_id,
+            request_class=head.request_class,
+            slo_ttft_ms=head.slo_ttft_ms, slo_tpot_ms=head.slo_tpot_ms,
+            shed=True))
+        return None
 
     def _run_process_backed(self) -> list[ServeResult]:
         """Drive process-backed pairs CONCURRENTLY: each pair's host handle
@@ -444,7 +498,9 @@ class SpecDecodeServer:
         """Per-pair operating point after :meth:`run`, keyed by pair id:
         request/iteration counts, mean effective γ, fused fraction,
         acceptance, the pipelined mode's hits and misses, the unhidden link
-        ms, rolling p50/p95 TTFT/TPOT (NaN until a retirement lands), for
+        ms, rolling p50/p95 TTFT/TPOT over the last ``slo_window``
+        retirements (the windows SLO admission consults; NaN until a
+        retirement lands), the requests SLO admission shed, for
         paged sessions the free KV blocks, and — when the pair has a
         transport — its link stats (bytes, messages, measured RTT). A
         process-backed pair reports its host's row
@@ -476,6 +532,7 @@ class SpecDecodeServer:
                 "ttft_p95_ms": round(self._ttft_q[i].p95(), 3),
                 "tpot_p50_ms": round(self._tpot_q[i].p50(), 3),
                 "tpot_p95_ms": round(self._tpot_q[i].p95(), 3),
+                "shed": self._shed[i],
             }
             fb = sess.free_kv_blocks()
             if fb is not None:

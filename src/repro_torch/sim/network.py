@@ -11,14 +11,18 @@ The same delay model backs the real execution path: the port's
 delay as wall-clock sleep (or on a virtual clock). Given one seed, the
 delays, payload prices and RTT estimates equal the reference's exactly.
 
-The event-driven ``Link`` of DSD-Sim comes with the simulator (ROADMAP
-A14); this module holds only what the real path needs.
+:class:`Link` is DSD-Sim's event-driven delivery over the same model (paper
+§3.1): a delay element attached to send/receive events of an
+:class:`~repro_torch.sim.events.Environment`.
 """
 
 from __future__ import annotations
 
 import random
 from dataclasses import dataclass
+from typing import Any, Callable
+
+from .events import Environment
 
 
 # Tokens streamed per fused-mode control round trip: the simulator's
@@ -80,6 +84,72 @@ class RttTracker:
             return default
         tail = self._rtts[-32:]
         return sum(tail) / len(tail)
+
+
+class Link:
+    """One-way message delivery with RTT/2 + jitter + serialization delay."""
+
+    def __init__(self, env: Environment, spec: LinkSpec, rng: random.Random):
+        self.env = env
+        self.spec = spec
+        self.rng = rng
+        self.bytes_sent = 0
+        self.messages_sent = 0
+        # Measured RTT pairs feed the AWC feature vector (RTT_recent).
+        # A Link is SHARED by every drafter routed to its target, so
+        # consecutive deliveries do NOT alternate directions (two drafters'
+        # outbound windows can interleave) — callers that complete an
+        # exchange record the explicitly paired sum via record_rtt();
+        # transfer()/send() never auto-pair.
+        self._rtt = RttTracker()
+        self.last_delay_ms = 0.0   # most recent sampled one-way delay
+
+    def one_way_ms(self, payload_bytes: int = 64) -> float:
+        return sample_one_way_ms(self.spec, self.rng, payload_bytes)
+
+    def record_rtt(self, rtt_ms: float) -> None:
+        """Record one complete exchange's out+back delay (the caller pairs
+        its own two transfers — see the sharing note above)."""
+        self._rtt.record_rtt(rtt_ms)
+
+    def send(self, payload_bytes: int, deliver: Callable[[], Any]) -> None:
+        """Schedule ``deliver`` after the one-way delay."""
+        delay = self.one_way_ms(payload_bytes)
+        self.bytes_sent += payload_bytes
+        self.messages_sent += 1
+        self.last_delay_ms = delay
+        self.env._schedule(self.env.now + delay, deliver)
+
+    def charge(self, payload_bytes: int = 64) -> float:
+        """Account a delivery whose flight is fully HIDDEN behind other
+        work (cross-round pipelining): the bytes cross the wire and the
+        sampled delay is returned for RTT bookkeeping, but no simulation
+        time elapses at the caller."""
+        delay = self.one_way_ms(payload_bytes)
+        self.bytes_sent += payload_bytes
+        self.messages_sent += 1
+        self.last_delay_ms = delay
+        return delay
+
+    def transfer(self, payload_bytes: int = 64):
+        """Event-style API: ``yield link.transfer(n)`` inside a process.
+
+        ``last_delay_ms`` exposes the sampled delay so callers can account
+        link time separately from service time (the AWC TPOT feature must
+        not re-absorb the RTT it is paired with) and pair the two halves
+        of an exchange for :meth:`record_rtt`."""
+        delay = self.one_way_ms(payload_bytes)
+        self.bytes_sent += payload_bytes
+        self.messages_sent += 1
+        self.last_delay_ms = delay
+        return self.env.timeout(delay)
+
+    @property
+    def recent_rtt_ms(self) -> float:
+        """Mean of recent measured round trips (paired outbound+return
+        one-way delays). Falls back to the spec RTT before the first
+        complete pair."""
+        return self._rtt.mean_recent_ms(self.spec.rtt_ms)
 
 
 def window_payload_bytes(gamma: int, n_nodes: int | None = None) -> int:

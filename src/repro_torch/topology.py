@@ -1,6 +1,7 @@
 """Topology-first deployment API of the port (the reference
 ``repro/topology.py``): ONE declarative, JSON-round-trippable
-:class:`ClusterSpec` that builds the real execution path.
+:class:`ClusterSpec` that builds the real execution path, the serving
+layer and DSD-Sim.
 
 - :class:`NodeSpec`   — one device in the deployment (role ``draft`` or
   ``target``, model config name, placement hints);
@@ -9,15 +10,22 @@
   window policy (:class:`WindowSpec`), its mode policy, and whether its two
   sides run as worker processes (``process``);
 - :class:`ClusterSpec` — nodes + pairs + serving knobs
-  (:class:`ServingSpec`) + a workload (:class:`WorkloadSpec`), with
+  (:class:`ServingSpec`) + a workload (:class:`WorkloadSpec`, optionally
+  a fleet :class:`~repro_torch.fleet.workload.TraceSpec`), with
   ``validate()`` and ``to_json()``/``from_json()``: the reference's schema,
   validation messages and JSON bytes.
 
-:func:`build_deployment` turns a spec into a :class:`Deployment` of
-:class:`~repro_torch.serving.ServingPair` lanes driving the port's
-:class:`~repro_torch.serving.SpecDecodeServer`; ``launch.serve
---topology cluster.json`` feeds a spec straight in, and the launcher's
-one-pair flags compile to a spec through :func:`one_pair_spec`.
+Two factories consume the SAME spec, so sim↔real parity is a property of
+the spec:
+
+- :func:`build_deployment` turns it into a :class:`Deployment` of
+  :class:`~repro_torch.serving.ServingPair` lanes driving the port's
+  :class:`~repro_torch.serving.SpecDecodeServer`; ``launch.serve
+  --topology cluster.json`` feeds a spec straight in, and the launcher's
+  one-pair flags compile to a spec through :func:`one_pair_spec`;
+- :func:`build_simulation` turns it into a matching
+  :class:`~repro_torch.sim.DSDSimulation` (one sim drafter per pair,
+  pair-pinned routing, per-pair links), host code only.
 
 Weights: each node's parameters are drawn ONCE, on the device, from
 :func:`node_seed` — ``spec.seed + 2·i`` for the i-th draft node and
@@ -29,10 +37,6 @@ worker hosts of a process-backed pair (:mod:`repro_torch.distributed.host`)
 call the same function, so a host builds the weights the in-process
 deployment of the same spec builds. The draws differ from the reference's
 ``jax.random`` ones; tests carry reference weights over as ``node_params``.
-
-Not ported yet: ``WorkloadSpec.trace`` (fleet traces, ROADMAP A13) raises
-:class:`TopologyError`, and DSD-Sim's ``build_simulation`` waits for the
-simulator (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from .configs import get_config
+from .fleet.workload import TraceSpec, WorkloadError
 from .sim.network import LinkSpec
 
 MODE_POLICIES = ("auto", "distributed", "fused", "pipeline")
@@ -131,9 +136,14 @@ class ServingSpec:
 
 @dataclass
 class WorkloadSpec:
-    """Request stream description (``launch.serve`` defaults). ``trace``
-    (a fleet trace with request classes and SLOs) belongs to ROADMAP A13
-    and is refused until ``fleet/`` is ported."""
+    """Request stream description (drives ``launch.serve`` defaults and
+    :func:`build_simulation`'s generated records).
+
+    ``trace`` upgrades the stream to a fleet
+    :class:`~repro_torch.fleet.workload.TraceSpec` — request classes with
+    per-class length distributions and TTFT/TPOT SLOs, diurnal/burst/replay
+    load shapes — and supersedes the flat ``num_requests``/``rate_per_s``/
+    ``prompt_lo``/``prompt_hi`` surface when present."""
     dataset: str = "gsm8k"
     num_requests: int = 8
     max_new: int = 32
@@ -141,12 +151,7 @@ class WorkloadSpec:
     prompt_lo: int = 8           # synthetic prompt-length range: lengths
     prompt_hi: int = 48          # drawn from [prompt_lo, prompt_hi) —
                                  # EXCLUSIVE upper bound
-    trace: Optional[Any] = None  # fleet trace (ROADMAP A13)
-
-
-def _trace_refused() -> TopologyError:
-    return TopologyError("workload.trace: fleet traces come with ROADMAP "
-                         "A13 (fleet/workload.py), not ported yet")
+    trace: Optional[TraceSpec] = None   # fleet trace (classes+SLOs+shape)
 
 
 @dataclass
@@ -260,9 +265,6 @@ class ClusterSpec:
         if s.rtt_ms < 0:
             raise TopologyError("serving.rtt_ms must be >= 0")
         from .serving import PAIR_ROUTERS
-        if s.router == "smart":
-            raise TopologyError("serving.router 'smart' is the fleet router "
-                                "of ROADMAP A13, not ported yet")
         if s.router not in PAIR_ROUTERS:
             raise TopologyError(
                 f"unknown serving.router {s.router!r}; "
@@ -281,7 +283,10 @@ class ClusterSpec:
             raise TopologyError("workload: need 1 <= prompt_lo < prompt_hi "
                                 "(prompt_hi is exclusive)")
         if w.trace is not None:
-            raise _trace_refused()
+            try:
+                w.trace.validate()
+            except WorkloadError as e:
+                raise TopologyError(f"workload.trace: {e}") from e
         return self
 
     # -- JSON round trip -----------------------------------------------------
@@ -316,9 +321,13 @@ class ClusterSpec:
             pairs.append(pair)
         serving = build(ServingSpec, d.get("serving", {}))
         w = dict(d.get("workload", {}))
-        if w.pop("trace", None) is not None:
-            raise _trace_refused()
+        trace = w.pop("trace", None)
         workload = build(WorkloadSpec, w)
+        if trace is not None:
+            try:
+                workload.trace = TraceSpec.from_dict(trace)
+            except WorkloadError as e:
+                raise TopologyError(f"workload.trace: {e}") from e
         return cls(nodes=nodes, pairs=pairs, serving=serving,
                    workload=workload, seed=int(d.get("seed", 0)))
 
@@ -543,3 +552,161 @@ def build_deployment(spec: ClusterSpec, *,
         raise
     return Deployment(spec=spec, pairs=pairs, node_configs=configs,
                       vocab=vocab, router=PAIR_ROUTERS[s.router]())
+
+
+# --------------------------------------------------------------------------
+# sim factory
+# --------------------------------------------------------------------------
+
+class PairDispatchWindowPolicy:
+    """Window policy for multi-pair simulations: dispatches each decision
+    to the pair's OWN policy instance by the sim's ``"did->tid"`` pair
+    key (drafter i is pair i under :func:`build_simulation`'s mapping),
+    so heterogeneous per-pair window declarations survive the shared
+    ``PolicyStack.window`` slot."""
+
+    def __init__(self, per_pair: list):
+        self.per_pair = list(per_pair)
+
+    def _policy_for(self, pair_key: str):
+        did = int(str(pair_key).split("->", 1)[0])
+        return self.per_pair[did % len(self.per_pair)]
+
+    def decide(self, pair_key: str, feats):
+        return self._policy_for(pair_key).decide(pair_key, feats)
+
+    def gamma_bound(self) -> int:
+        return max(p.gamma_bound() for p in self.per_pair)
+
+    def name(self) -> str:
+        return "per-pair(" + ",".join(p.name() for p in self.per_pair) + ")"
+
+
+def build_simulation(spec: ClusterSpec, records: Optional[list] = None, *,
+                     hwmodel=None, pipeline: Optional[bool] = None,
+                     predictor=None, pair_router=None):
+    """A :class:`~repro_torch.sim.DSDSimulation` matching the spec's topology.
+
+    Mapping: sim drafter i ⇔ ``spec.pairs[i]`` (its link becomes drafter
+    i's per-pair link via the scheduler's ``drafter_link_pool``); unique
+    target NODES become sim target servers; routing is pair-pinned, so a
+    request handed to drafter i verifies on pair i's declared target over
+    pair i's declared link — the same lanes the real deployment runs.
+
+    ``records`` replays captured acceptance traces (``TraceRecord`` with
+    ``drafter_id`` = pair index, or < 0 for "assign at arrival"); when
+    ``None``, the spec's :class:`WorkloadSpec` generates a synthetic
+    stream — from its fleet ``trace`` (class-aware arrivals with SLOs,
+    every record unpinned so the pair router assigns lanes) when one is
+    declared, else the flat legacy surface. ``pair_router`` is the
+    arrival-time lane policy for unpinned records: an instance, a
+    ``repro_torch.fleet.routing.SIM_PAIR_ROUTERS`` key, or None for the
+    spec's ``serving.router`` when that name has a sim analogue
+    (least-loaded/smart; shallowest-queue otherwise). ``pipeline``
+    defaults to True iff every pair declares ``mode_policy="pipeline"``
+    (the sim's overlap model is simulation-global). Pairs forced
+    ``fused`` simulate under an always-fused oracle policy; pairs forced
+    ``distributed`` keep their window policy's γ but never enter fused
+    mode (matching the real session's mode override).
+    """
+    from .core.window import OracleStaticPolicy, make_window_policy
+    from .sim.network import LinkSpec as SimLinkSpec
+    from .sim.policies import (BatchingConfig, FIFOBatching,
+                               LengthAwareBatching, PinnedRouting)
+    from .sim.scheduler import ClusterSpec as SimClusterSpec
+    from .sim.scheduler import DSDSimulation, PolicyStack
+    from .sim.trace import WorkloadGenerator
+
+    spec.validate()
+    s = spec.serving
+
+    target_ids: list[str] = []
+    for p in spec.pairs:
+        if p.target not in target_ids:
+            target_ids.append(p.target)
+    target_pool = [spec.node(t).sim_tuple() for t in target_ids]
+    draft_pool = [spec.node(p.draft).sim_tuple()[:2] for p in spec.pairs]
+    pinned = [target_ids.index(p.target) for p in spec.pairs]
+    drafter_links = [p.link if p.link is not None
+                     else SimLinkSpec(rtt_ms=0.0, jitter_ms=0.0)
+                     for p in spec.pairs]
+
+    per_pair_policies = []
+    for p in spec.pairs:
+        if p.mode_policy == "fused":
+            per_pair_policies.append(OracleStaticPolicy(1, fused=True))
+            continue
+        w = p.window
+        pol = make_window_policy(w.kind, gamma=w.gamma, hi=w.hi, lo=w.lo,
+                                 gmax=w.gmax, predictor=predictor)
+        if p.mode_policy == "distributed":
+            pol = _ForceDistributed(pol)
+        per_pair_policies.append(pol)
+    window = (per_pair_policies[0] if len(per_pair_policies) == 1
+              else PairDispatchWindowPolicy(per_pair_policies))
+
+    cluster = SimClusterSpec(
+        num_targets=len(target_ids),
+        num_drafters=len(spec.pairs),
+        link=drafter_links[0],
+        target_pool=target_pool,
+        draft_pool=draft_pool,
+        drafter_link_pool=drafter_links)
+    if pair_router is None and s.router in ("least-loaded", "smart"):
+        pair_router = s.router
+    if isinstance(pair_router, str):
+        from .fleet.routing import SIM_PAIR_ROUTERS
+        pair_router = SIM_PAIR_ROUTERS[pair_router]()
+    policies = PolicyStack(
+        routing=PinnedRouting(pinned),
+        batching=(LengthAwareBatching() if s.length_aware
+                  else FIFOBatching()),
+        batching_cfg=BatchingConfig(max_batch=s.max_batch, continuous=True),
+        window=window,
+        pair_routing=pair_router)
+    if records is None and spec.workload.trace is not None:
+        # fleet trace: class-aware arrivals with SLOs; unpinned records
+        # (drafter_id = -1) let the pair router assign lanes at arrival —
+        # the sim twin of the real server's PairRouter admission
+        from .fleet.workload import fleet_trace_records, generate_requests
+        records = fleet_trace_records(generate_requests(spec.workload.trace),
+                                      seed=spec.seed)
+    elif records is None:
+        # rate 0 means "all at t=0" on the real path; the generator needs
+        # a positive rate, so approximate with effectively-simultaneous
+        # arrivals
+        rate = spec.workload.rate_per_s or 1e6
+        gen = WorkloadGenerator(spec.workload.dataset, rate,
+                                len(spec.pairs), seed=spec.seed)
+        records = gen.generate(spec.workload.num_requests)
+        # synthetic streams exercise every declared lane: drafter i is
+        # pair i, so spread requests round-robin across pairs (captured
+        # traces passed via ``records`` keep their own drafter ids)
+        for i, rec in enumerate(records):
+            rec.drafter_id = i % len(spec.pairs)
+    if pipeline is None:
+        pipeline = all(p.mode_policy == "pipeline" for p in spec.pairs)
+    return DSDSimulation(cluster, policies, records, hwmodel=hwmodel,
+                         seed=spec.seed, pipeline=bool(pipeline))
+
+
+class _ForceDistributed:
+    """Mode override wrapper mirroring the real session's
+    ``mode_policy="distributed"``: the wrapped policy's γ stands, fused
+    decisions are coerced to distributed (γ clamped to ≥ 1)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def decide(self, pair_key, feats):
+        from .core.window import WindowDecision
+        d = self.inner.decide(pair_key, feats)
+        if d.mode == "fused":
+            return WindowDecision(max(1, d.gamma), "distributed")
+        return d
+
+    def gamma_bound(self) -> int:
+        return self.inner.gamma_bound()
+
+    def name(self) -> str:
+        return f"forced-distributed({self.inner.name()})"

@@ -5,8 +5,8 @@ its topology launcher against the JAX reference's, on the CPU.
   JSON byte for byte, and round-trip; ``one_pair_spec`` equals the
   reference's for the launcher's flag combinations.
 - Every validation error of the reference is raised with the same message
-  (one parametrised test); the fleet trace and the smart router name their
-  ROADMAP item.
+  (one parametrised test); the smart router and a fleet trace validate as
+  the reference's do.
 - ``node_seed``: the documented per-node derivation, and a one-pair
   deployment draws the engine's own default weights.
 - A tiny two-pair deployment (the shape of ``examples/cluster_2pair.json``:
@@ -173,18 +173,31 @@ def test_unknown_field_errors_match_reference(where):
 
 
 def test_unported_parts_name_their_roadmap_item():
-    spec = _base(ttopo)
-    spec.serving.router = "smart"
-    with pytest.raises(ttopo.TopologyError, match="A13"):
-        spec.validate()
-    d = json.loads(_base(ttopo).to_json())
-    d["workload"]["trace"] = {"classes": []}
-    with pytest.raises(ttopo.TopologyError, match="A13"):
-        ttopo.ClusterSpec.from_dict(d)
-    spec = _base(ttopo)
-    spec.workload.trace = object()
-    with pytest.raises(ttopo.TopologyError, match="A13"):
-        spec.validate()
+    """The parts this test once found refused (the smart router, a fleet
+    trace) are ported: each validates as the reference does, and a bad
+    trace raises the reference's ``workload.trace: …`` message, loaded or
+    set in code."""
+    for pkg in (jtopo, ttopo):
+        spec = _base(pkg)
+        spec.serving.router = "smart"
+        assert spec.validate().serving.router == "smart"
+    msgs = []
+    for pkg in (jtopo, ttopo):
+        d = json.loads(_base(pkg).to_json())
+        d["workload"]["trace"] = {"num_requests": 3, "rate_per_s": 2.0}
+        assert pkg.ClusterSpec.from_dict(d).validate().to_json() == \
+            ttopo.ClusterSpec.from_dict(d).to_json()
+        d["workload"]["trace"] = {"classes": []}
+        spec = pkg.ClusterSpec.from_dict(d)
+        with pytest.raises(pkg.TopologyError) as e:
+            spec.validate()
+        msgs.append(str(e.value))
+        d["workload"]["trace"] = {"shape": "hourly"}
+        with pytest.raises(pkg.TopologyError) as e:
+            pkg.ClusterSpec.from_dict(d).validate()
+        msgs.append(str(e.value))
+    assert msgs[:2] == msgs[2:]
+    assert msgs[0].startswith("workload.trace: ")
 
 
 def test_node_seed_derivation():
