@@ -63,8 +63,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               tokens (== target greedy); at T 1.0 two ``generate(seed=5)``
               give equal tokens; two live sessions hold two pools; TTFT of
               a cold and a warm bf16 server at QWEN_CUT side by side; then
-              the bf16 qwen dense static γ 4 serve at QWEN_CUT depth (8
-              requests × 16 tokens) eager and captured back to back (walls,
+              the bf16 qwen dense static γ 4 serve at PROFILE_CUT depth
+              (5 / 4 layers, 8 requests × 16 tokens) eager and captured
+              back to back (walls,
               TPOT, device busy share, equal launch counts);
 6. distributed — the draft/target split, half-duplex rounds over a
               transport, every worker program captured once per session:
@@ -154,7 +155,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               (2 layers) captured == eager, dense == paged, colocated ==
               in-process transport at capacity factor 1.25, server and
               tree wave == target greedy at cf 8 (nothing dropped), T 1.0
-              seeded; bf16 arctic-480b (experts 128 → 8, layers 35 → 12)
+              seeded; bf16 arctic-480b (experts 128 → 8, layers 35 → 6)
               ← llama2-7b as published, static γ 4 served dense and paged
               on the 8 × 32 stream with exact launches, the dropped expert
               assignments per round and the MoE blocks' share of the
@@ -178,7 +179,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               process pair (f32, QWEN_CUT) scaling from one pair to two
               under a 12-request burst == target greedy, every host shut
               down; DSD-Sim on the spec under both routers beside the real
-              per-pair counts (printed, not gated).
+              per-pair counts (printed, not gated);
+14. train   — training: ``ssd_scan_bwd`` (B5's gradient, a hand-written
+              backward kernel) against the plain backward (autograd of
+              the chunked plain scan) at zamba2-1.2b's and mamba2-130m's
+              SSM widths, S 64 / 512 / 2048 / 1001, f32 and bf16, nonzero
+              h_in and dh_out, then timed beside B5's forward, the plain
+              backward and the bound; float32 parity (2 layers a side,
+              ssm and hybrid): the first gradient and 3 AdamW steps on the
+              card (B5 both ways) == the same on the CPU, every Mamba2 leaf
+              of every layer with a nonzero gradient; mamba2-130m (B 8 × S
+              1024, 30 steps) and zamba2-1.2b (B 4 × S 1024, 10 steps) at
+              the published widths and depth and qwen2.5-3b at QWEN_CUT
+              depth (6 steps) in bf16 through ``repro_torch.launch.train
+              --full --device cuda``: loss falls, ``ssd_scan`` =
+              steps·L·2 (remat re-runs each layer's forward) and
+              ``ssd_scan_bwd`` = steps·L exactly, s/step, tokens/s, peak
+              memory; ``examples/train_draft_torch.py`` at its default
+              sizes (the trained draft's acceptance above the untrained
+              one's); WC-DNN on DSD-Sim labels (``default_grid(small=
+              True)``) trained on the card into a temporary path,
+              ``numpy_predictor`` == ``forward`` within 1e-5.
 The decode rounds of every chunk run under
 ``torch.cuda.set_sync_debug_mode("error")`` (all but the one call per
 session step that captures it: capture synchronizes the device); a
@@ -205,7 +226,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "exact", "capture", "distributed",
           "serve", "exact_ssm", "serve_ssm", "pipeline", "topology",
-          "families", "fleet")
+          "families", "fleet", "train")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
@@ -215,6 +236,11 @@ HYBRID_LAYERS = 8              # zamba2 depth in exact_ssm: 1 segment + 2
 # whole script stays near 600 s with the SSM slice added; dense static
 # (greedy and T = 1) and paged static greedy keep the published depth
 QWEN_CUT = {"qwen3-14b": 10, "qwen2.5-3b": 9}
+# depth of the profiled eager-against-captured serve (capture phase), half
+# of QWEN_CUT since the training phase joined the script (the profiler's
+# cost grows with the kernels it traces; the whole script stays well under
+# its 1200 s limit)
+PROFILE_CUT = {"qwen3-14b": 5, "qwen2.5-3b": 4}
 SSM_DRAFT_LAYERS = 2           # mamba2-130m depth in exact_ssm
 B_MAX = 3                      # tree branch bound of the tree runs
 TREE_NOISE = 0.05              # draft = target + N(0, (0.05·std)²) per tensor
@@ -376,6 +402,7 @@ def phase_build(kernels):
     for label, names in (("decode_attention", ("decode_attn.cu",
                                                "paged_decode_attn.cu")),
                          ("ssd_scan", ("ssd_scan.cu", "ssd_scan_f32.cu")),
+                         ("ssd_scan_bwd", ("ssd_scan_bwd.cu",)),
                          ("sampled_verify", ("sampled_verify.cu",))):
         entries = []
         for name in names:
@@ -2232,7 +2259,7 @@ def phase_capture(torch, kernels):
 
 
 def eager_against_captured(torch, kernels) -> None:
-    """The qwen3-14b ← qwen2.5-3b dense static γ 4 serve (bf16, QWEN_CUT
+    """The qwen3-14b ← qwen2.5-3b dense static γ 4 serve (bf16, PROFILE_CUT
     depth, the smoke's 8 requests at 16 new tokens each, half its 32, so
     that the two profiled runs stay short) through the launcher, eager
     (``--no-capture``) then captured, back to back; then each again under
@@ -2251,7 +2278,7 @@ def eager_against_captured(torch, kernels) -> None:
     for mode, extra in modes:
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with depth_cut(QWEN_CUT):
+        with depth_cut(PROFILE_CUT):
             out = serve.run(argv + extra)
         s = out.summary
         res[mode] = {k: s[k] for k in (
@@ -2265,7 +2292,7 @@ def eager_against_captured(torch, kernels) -> None:
         torch.cuda.empty_cache()
     for mode, extra in modes:
         t0 = time.perf_counter()
-        with depth_cut(QWEN_CUT), profile(
+        with depth_cut(PROFILE_CUT), profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
             out = serve.run(argv + extra)
             torch.cuda.synchronize()
@@ -2288,8 +2315,8 @@ def eager_against_captured(torch, kernels) -> None:
     for r in res.values():
         del r["tokens"]
     emit({"phase": "capture", "check": "eager vs captured",
-          "run": "qwen dense static gamma 4, bf16, QWEN_CUT",
-          "layers": [QWEN_CUT["qwen2.5-3b"], QWEN_CUT["qwen3-14b"]],
+          "run": "qwen dense static gamma 4, bf16, PROFILE_CUT",
+          "layers": [PROFILE_CUT["qwen2.5-3b"], PROFILE_CUT["qwen3-14b"]],
           "card": smi_line(), "eager": eag, "captured": cap,
           "wall_speedup": eag["wall_s"] / cap["wall_s"],
           "tpot_speedup": eag["mean_tpot_ms"] / cap["mean_tpot_ms"],
@@ -2805,7 +2832,8 @@ def phase_serve(torch, kernels):
         sampled = "--temperature" in extra
         b3 = s["iterations"] if sampled else 0
         want.update(tree_argmax=0, tree_accept=0, tree_verify=0,
-                    gather_reduce=b3, cdf_sample=b3, ssd_scan=0)
+                    gather_reduce=b3, cdf_sample=b3, ssd_scan=0,
+                    ssd_scan_bwd=0)
         V = eng.target_cfg.vocab
         full = all(len(r.tokens) == 32 and (r.tokens >= 0).all()
                    and (r.tokens < V).all() for r in out.results)
@@ -2925,7 +2953,8 @@ def serve_tree(torch, np, kernels, dev) -> dict:
         want = {"decode_attn": rounds * (GAMMA_MAX * L_d + L_t)
                 + waves * (L_d + L_t), "paged_decode_attn": 0,
                 "tree_argmax": 0, "tree_accept": 0, "tree_verify": tree_n,
-                "gather_reduce": 0, "cdf_sample": 0, "ssd_scan": 0}
+                "gather_reduce": 0, "cdf_sample": 0, "ssd_scan": 0,
+                "ssd_scan_bwd": 0}
         full = all(t.size == 32 and (t >= 0).all() and (t < vocab).all()
                    for t in res["tokens"].values())
         keys = eng.step_programs()
@@ -3456,9 +3485,10 @@ def pipeline_exact(torch, kernels) -> dict:
 
 FAMILY_KERNELS = ("decode_attn", "paged_decode_attn", "tree_verify",
                   "gather_reduce", "cdf_sample")
-# arctic-480b cut to one card: experts 128 → 8, layers 35 → 12 (bf16 about
-# 26 GB), every width as published; the f32 checks at 2 layers each side
-ARCTIC_CUT = dict(n_experts=8, n_layers=12)
+# arctic-480b cut to one card: experts 128 → 8, layers 35 → 6 (12, about
+# 26 GB in bf16, until the training phase joined the script), every width
+# as published; the f32 checks at 2 layers each side
+ARCTIC_CUT = dict(n_experts=8, n_layers=6)
 FAMILY_EXACT_LAYERS = 2
 WHISPER_NOISE = 0.01
 INTERNVL_LAYERS = (4, 1)           # bf16 timing: target, draft
@@ -3642,7 +3672,7 @@ def _scope_device_ms(prof, name: str) -> float:
 
 def moe_serve(torch, np, kernels, totals, dev) -> None:
     """bf16, arctic-480b at the published widths (experts 128 → 8, layers
-    35 → 12) ← llama2-7b as published: static γ 4 on the smoke's 8 × 32
+    35 → 6) ← llama2-7b as published: static γ 4 on the smoke's 8 × 32
     stream through the in-process server, dense then paged (captured);
     exact launch counts; then an eager dense run counting the dropped
     expert assignments per round, and the MoE blocks' share of the verify
@@ -4628,6 +4658,413 @@ def fleet_sim(real: dict) -> None:
           "sim": sim, "real": real, "smart_more_slo_on_lan": more})
 
 
+# ------------------------------------------------------------------- train
+
+TRAIN_KERNELS = ("ssd_scan", "ssd_scan_bwd")
+# (model whose SSM widths, B, S, nh, hd, N) of the gradient checks: one
+# chunk, many, and a length that is no multiple of 64 nor of the kernel's
+# checkpoint interval
+SSD_BWD_CASES = tuple(
+    (name, B, S, nh, hd, N)
+    for name, nh, hd, N in (("zamba2-1.2b", 64, 64, 64),
+                            ("mamba2-130m", 24, 64, 128))
+    for B, S in ((2, 64), (2, 512), (1, 2048), (2, 1001)))
+# per gradient, |kernel − plain| ≤ share·(max|plain| + |plain|): float32,
+# two f32 algorithms in another order (the kernel's sequential recurrence,
+# the plain chunked einsums); bfloat16 adds one rounding of dx/dB/dC to
+# bf16 on each side (2⁻⁸ relative)
+SSD_BWD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+GRAD_NAMES = ("dx", "dBm", "dCm", "ddt", "dA", "dh_in")
+# (label, B, S, nh, hd, N) of the timed ssd_scan_bwd calls (bf16): B5's
+# three kernel-table shapes, then the two training shapes of this phase
+SSD_BWD_TIMED = (("zamba2_verify", 4, 9, 64, 64, 64),
+                 ("zamba2_prefill", 4, 48, 64, 64, 64),
+                 ("s4096", 2, 4096, 24, 64, 128),
+                 ("mamba2_train", 8, 1024, 24, 64, 128),
+                 ("zamba2_train", 4, 1024, 64, 64, 64))
+# the full training runs: (arch, batch, seq, steps, layers or None, peak
+# lr; the launcher's cosine schedule warms up over 20 steps)
+TRAIN_RUNS = (("mamba2-130m", 8, 1024, 30, None, 1e-3),
+              ("zamba2-1.2b", 4, 1024, 10, None, 3e-4),
+              ("qwen2.5-3b", 4, 1024, 6, QWEN_CUT["qwen2.5-3b"], 3e-4))
+# parity: 2 layers a side in float32 (zamba2: one segment of 2 Mamba2
+# layers and the shared block), B 1 × S 128 (two B5 chunks), 3 steps
+PARITY_CFGS = (("mamba2-130m", dict(n_layers=2)),
+               ("zamba2-1.2b", dict(n_layers=2, attn_every=2)))
+PARITY_SHAPE = (1, 128)
+PARITY_LR = 1e-4
+# card against CPU, float32: gradients per leaf |Δ| ≤ 1e-3·(max|g| + |g|)
+# (sum orders, B5's split-TF32 products against the CPU's f32 einsums);
+# losses rtol 1e-4; the 3 steps' parameter update p − p0 within 1e-2 of
+# its norm (‖Δcard − Δcpu‖ ≤ 1e-2·‖Δcpu‖ over all leaves): AdamW moves an
+# element by ±lr whatever its gradient's size, so an element whose
+# gradient sits at rounding level may move the other way on the other
+# device; its share of the update's norm is what stays small
+PARITY_GRAD_TOL = 1e-3
+PARITY_LOSS_RTOL = 1e-4
+PARITY_UPDATE_RTOL = 1e-2
+WCDNN_PREDICT_TOL = 1e-5
+
+
+def ssd_bwd_bound(B, S, nh, hd, N, esize):
+    """The least time of the scan's gradient: bytes (x/B/C and dx/dB/dC
+    once in their type, dy, dt, ddt, A, dA and h_in/dh_out/dh_in once in
+    f32) over the HBM rate, against twice the chunked forward's
+    multiply-adds (:func:`ssd_bound`, chunk 64) over the bf16 tensor
+    rate."""
+    by = (esize * 2 * (B * S * nh * hd + 2 * B * S * N)
+          + 4 * B * S * nh * hd + 4 * 2 * B * S * nh + 4 * 2 * nh
+          + 4 * 3 * B * nh * hd * N)
+    flops = 0
+    for c0 in range(0, S, 64):
+        L = min(64, S - c0)
+        flops += 2 * B * (2 * L * L * N + nh * (4 * L * hd * N
+                                                + L * (L + 1) * hd))
+    t_b, t_o = by / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype):
+    """:func:`ssd_inputs` (nonzero h_in) and dy, dh_out ~ N(0, 1) f32."""
+    args = ssd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype)
+    dy = torch.randn((B, S, nh, hd), generator=gen, device=dev)
+    dh = torch.randn((B, nh, hd, N), generator=gen, device=dev)
+    return args + (dy, dh)
+
+
+def check_ssd_bwd(torch, gen, dev) -> tuple:
+    """``ssd_scan_bwd`` (its wrapper) against the plain backward (autograd
+    of the chunked plain scan) on the same card tensors, TF32 off, at
+    SSD_BWD_CASES in f32 and bf16: every gradient finite, of the input's
+    shape and type, within SSD_BWD_TOL. Returns the largest share of the
+    tolerance used and the largest |kernel − plain| of any gradient; prints
+    each case's largest error per gradient."""
+    from repro_torch.kernels.ssd import ssd_bwd_call, ssd_chunked_plain_bwd
+    worst, top, rows = 0.0, 0.0, []
+    for name, B, S, nh, hd, N in SSD_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype)
+            got = ssd_bwd_call(*ins)
+            want = ssd_chunked_plain_bwd(*ins, 64)
+            torch.cuda.synchronize()
+            share = SSD_BWD_TOL[str(dtype)[6:]]
+            errs = {}
+            for gname, a_, b_, x_ in zip(GRAD_NAMES, got, want, ins):
+                if a_.shape != x_.shape or a_.dtype != x_.dtype:
+                    fail(f"ssd_scan_bwd {name} S {S} {dtype}: {gname} is "
+                         f"{a_.dtype} {tuple(a_.shape)}")
+                a_, b_ = a_.float(), b_.float()
+                if not torch.isfinite(a_).all():
+                    fail(f"ssd_scan_bwd {name} S {S} {dtype}: {gname} "
+                         "not finite")
+                if not torch.isfinite(b_).all():
+                    fail(f"ssd_scan_bwd {name} S {S} {dtype}: the plain "
+                         f"backward's {gname} is not finite")
+                d = (a_ - b_).abs()
+                lim = share * (float(b_.abs().max()) + b_.abs())
+                used = float((d / lim).max())
+                if not used <= 1.0:
+                    fail(f"ssd_scan_bwd {name} S {S} {dtype}: {gname} "
+                         f"max |err| {float(d.max()):.3e} over "
+                         f"{share}·(max|plain| + |plain|)")
+                worst = max(worst, used)
+                errs[gname] = float(d.max())
+                top = max(top, errs[gname])
+            rows.append({"ssm": name, "B": B, "S": S, "nh": nh, "hd": hd,
+                         "N": N, "dtype": str(dtype)[6:],
+                         "max_abs_err": errs})
+    emit({"phase": "train", "check": "ssd_scan_bwd == plain backward",
+          "cases": rows, "tolerance": {k: f"{v}·(max|plain| + |plain|)"
+                                       for k, v in SSD_BWD_TOL.items()},
+          "tolerance_share_used": worst, "h_in": "nonzero",
+          "dh_out": "nonzero", "allow_tf32": False})
+    return worst, top
+
+
+def time_ssd_bwd(torch, gen, dev) -> dict:
+    """``ssd_scan_bwd`` at SSD_BWD_TIMED (bf16): device time by CUDA-graph
+    replay (a few calls per graph at the training shapes, whose scratch is
+    ~1 GB a call), beside B5's forward on the same inputs, the plain
+    backward (eager: autograd) and the bound; no PyTorch call computes
+    it (``library_ms`` null)."""
+    from repro_torch.kernels.ssd import (ssd_bwd_call, ssd_call,
+                                         ssd_chunked_plain_bwd)
+    out = {}
+    for label, B, S, nh, hd, N in SSD_BWD_TIMED:
+        ins = ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N,
+                             torch.bfloat16)
+        small = S <= 64
+        bound, by = ssd_bwd_bound(B, S, nh, hd, N, 2)
+        out[label] = {
+            "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "N": N,
+                      "dtype": "bfloat16"},
+            "ms": graph_ms(torch, lambda: ssd_bwd_call(*ins),
+                           iters=20 if small else 2,
+                           replays=5 if small else 3),
+            "forward_ms": graph_ms(torch, lambda: ssd_call(*ins[:6]),
+                                   iters=20 if small else 2,
+                                   replays=5 if small else 3),
+            "plain_ms": cuda_ms(torch, lambda: ssd_chunked_plain_bwd(
+                *ins, 64), iters=5 if small else 2, warmup=1),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+        del ins
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_parity(torch, kernels, card) -> None:
+    """Float32, 2 layers a side: from the same weights, the gradient of the
+    first batch's loss and 3 AdamW steps of the port's train step on the
+    card (B5 forward, ``ssd_scan_bwd`` backward) against the same on the
+    CPU (the plain scan and autograd), for the ssm and the hybrid family.
+    Every Mamba2 leaf of every layer has a nonzero gradient on the card
+    and equals the CPU's within PARITY_GRAD_TOL; losses and parameters
+    after 3 steps within PARITY_LOSS_RTOL / PARITY_UPDATE_RTOL (the card's
+    ``ssd_scan_bwd`` launches per gradient: one per Mamba2 layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM,
+                                      init_train_state, make_loss_fn,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import trainable
+    cpu = torch.device("cpu")
+    for name, over in PARITY_CFGS:
+        cfg = dataclasses.replace(get_config(name), dtype="float32", **over)
+        dev = torch.device("cuda", 0)
+        models = {"cuda": build_model(cfg, dev), "cpu": build_model(cfg, cpu)}
+        p0 = models["cuda"].init_params(0)
+        params = {"cuda": p0, "cpu": tree_map(lambda t: t.cpu(), p0)}
+        B, S = PARITY_SHAPE
+        it = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, batch=B,
+                                    seed=0)).batches()
+        batches = [next(it) for _ in range(3)]
+        grads = {}
+        for side, model in models.items():
+            d = dev if side == "cuda" else cpu
+            p = trainable(params[side])
+            batch = {k: torch.from_numpy(v).to(d)
+                     for k, v in batches[0].items()}
+            loss, _ = make_loss_fn(model)(p, batch)
+            kernels.reset_launches()
+            g = torch.autograd.grad(loss, tree_leaves(p))
+            it_g = iter(g)
+            grads[side] = tree_map(lambda _: next(it_g), p)
+            if side == "cuda":
+                n_bwd = kernels.LAUNCHES["ssd_scan_bwd"]
+                if n_bwd != cfg.n_layers:
+                    fail(f"parity {name}: ssd_scan_bwd launched {n_bwd} "
+                         f"times for {cfg.n_layers} Mamba2 layers")
+        zero, worst = [], 0.0
+        for key, gc_ in grads["cuda"]["layers"]["ssm"].items():
+            gp = grads["cpu"]["layers"]["ssm"][key]
+            for l in range(cfg.n_layers):
+                if not bool((gc_[l] != 0).any()):
+                    zero.append(f"layers.ssm.{key}[{l}]")
+        if zero:
+            fail(f"parity {name}: zero gradient on the card for {zero}")
+        for (kc, a_), b_ in zip(_paths(grads["cuda"]),
+                                tree_leaves(grads["cpu"])):
+            d = (a_.cpu().float() - b_.float()).abs()
+            lim = PARITY_GRAD_TOL * (float(b_.abs().max()) + b_.abs())
+            used = float((d / lim.clamp_min(1e-30)).max())
+            if not used <= 1.0:
+                fail(f"parity {name}: gradient {kc} card vs CPU max |err| "
+                     f"{float(d.max()):.3e}")
+            worst = max(worst, used)
+        opt = AdamWConfig(lr=PARITY_LR)
+        losses, finals = {}, {}
+        for side, model in models.items():
+            d = dev if side == "cuda" else cpu
+            st = init_train_state(model, 0, opt, params=tree_map(
+                lambda t: t.clone(), params[side]))
+            step = make_train_step(model, opt)
+            ls = []
+            for b in batches:
+                st, m = step(st, {k: torch.from_numpy(v).to(d)
+                                  for k, v in b.items()})
+                ls.append(float(m["loss"]))
+            losses[side], finals[side] = ls, st.params
+        for a_, b_ in zip(losses["cuda"], losses["cpu"]):
+            if abs(a_ - b_) > PARITY_LOSS_RTOL * abs(b_):
+                fail(f"parity {name}: losses {losses['cuda']} card vs "
+                     f"{losses['cpu']} CPU")
+        num = den = pmax = 0.0
+        for a_, b_, c_ in zip(tree_leaves(finals["cuda"]),
+                              tree_leaves(finals["cpu"]),
+                              tree_leaves(params["cpu"])):
+            d = a_.detach().cpu().double() - b_.detach().double()
+            num += float(d.square().sum())
+            den += float((b_.detach().double() - c_.double()).square().sum())
+            pmax = max(pmax, float(d.abs().max()))
+        rel = math.sqrt(num / den)
+        if not rel <= PARITY_UPDATE_RTOL:
+            fail(f"parity {name}: the 3 steps' update differs by {rel:.3e} "
+                 f"of its norm (card vs CPU)")
+        emit({"phase": "train", "check": f"parity {name} f32, card == CPU",
+              "card": card, "layers": cfg.n_layers, "batch": B, "seq": S,
+              "mamba2_leaves_nonzero": sorted(grads["cuda"]["layers"]["ssm"]),
+              "grad_tolerance": f"{PARITY_GRAD_TOL}·(max|g| + |g|)",
+              "grad_tolerance_share_used": worst,
+              "losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+              "loss_rtol": PARITY_LOSS_RTOL,
+              "update_rel_diff": rel, "update_rtol": PARITY_UPDATE_RTOL,
+              "param_max_abs_diff": pmax, "lr": PARITY_LR})
+        del models, params, grads, finals
+        torch.cuda.empty_cache()
+
+
+def _paths(tree, prefix=""):
+    """(dotted path, leaf) in tree_leaves order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def train_runs(torch, kernels, card) -> dict:
+    """The published configs through ``repro_torch.launch.train --full
+    --device cuda`` in bf16 (TRAIN_RUNS): loss falls, ``ssd_scan`` =
+    steps·L·(2 under remat: the checkpointed layer's forward re-runs in
+    the backward pass) and ``ssd_scan_bwd`` = steps·L for the L Mamba2
+    layers, no other kernel; s/step (steps after the first), tokens/s and
+    peak memory printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    for arch, B, S, steps, layers, lr in TRAIN_RUNS:
+        argv = ["--arch", arch, "--full", "--device", "cuda", "--batch",
+                str(B), "--seq", str(S), "--steps", str(steps), "--lr",
+                str(lr), "--log-every", str(steps)]
+        t0 = time.perf_counter()
+        if layers:
+            argv += ["--layers", str(layers)]
+        kernels.reset_launches()
+        s = launcher.run(launcher.parse_args(argv))
+        launches = dict(kernels.LAUNCHES)
+        cfg = get_config(arch)
+        L = layers or cfg.n_layers
+        mamba = L if cfg.arch_type in ("ssm", "hybrid") else 0
+        want = {k: 0 for k in kernels.LAUNCHES}
+        want["ssd_scan"] = steps * mamba * (2 if s["remat"] else 1)
+        want["ssd_scan_bwd"] = steps * mamba
+        if launches != want:
+            fail(f"train {arch}: launches {launches}, want {want}")
+        first, last = s["losses"][0], s["losses"][-1]
+        if not all(math.isfinite(l) for l in s["losses"]) or last >= first:
+            fail(f"train {arch}: loss {s['losses']} does not fall")
+        _add(totals, launches)
+        emit({"phase": "train", "run": f"{arch} bf16 --full", "card": card,
+              "layers": L, "d_model": s["d_model"], "params": s["params"],
+              "batch": B, "seq": S, "steps": steps, "lr": lr,
+              "seconds": time.perf_counter() - t0,
+              "remat": s["remat"], "first_loss": first, "last_loss": last,
+              "losses": s["losses"], "first_step_s": s["first_step_s"],
+              "s_per_step": s["s_per_step"],
+              "tokens_per_s": s["tokens_per_s"],
+              "peak_mem_gb": s["peak_mem_gb"],
+              "launches": {k: v for k, v in launches.items() if v},
+              "launch_formula": "ssd_scan = steps·L·(2 if remat), "
+                                "ssd_scan_bwd = steps·L"})
+        del s
+        torch.cuda.empty_cache()
+    return totals
+
+
+def train_draft_example(card) -> None:
+    """``examples/train_draft_torch.py`` at its default sizes on the card:
+    the trained draft's acceptance above the untrained one's (the example
+    asserts it)."""
+    import importlib.util
+    path = ROOT / "examples" / "train_draft_torch.py"
+    spec = importlib.util.spec_from_file_location("train_draft_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.run(device="cuda")
+    emit({"phase": "train", "run": "examples/train_draft_torch.py",
+          "card": card, "seconds": time.perf_counter() - t0, **out,
+          "acceptance_rise": out["acceptance_trained"]
+          - out["acceptance_untrained"]})
+
+
+def train_wcdnn(torch, card) -> None:
+    """WC-DNN: ``core/awc/dataset.generate_dataset`` on
+    ``default_grid(small=True)`` (host: DSD-Sim sweeps), then ``train`` on
+    the card, saved to a temporary path; ``numpy_predictor`` of the trained
+    parameters == ``forward`` on the card within WCDNN_PREDICT_TOL."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core.awc import dataset, model as wcdnn
+    from repro_torch.core.awc.train import TrainConfig, train
+    t0 = time.perf_counter()
+    X, y, _ = dataset.generate_dataset(dataset.default_grid(small=True))
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, info = train(X, y, TrainConfig(epochs=40), device="cuda")
+    t_train = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "wcdnn.npz")
+        wcdnn.save(params, path)
+        loaded = wcdnn.load(path)
+    predict = wcdnn.numpy_predictor(loaded)
+    with torch.no_grad():
+        card_out = wcdnn.forward(params, torch.as_tensor(
+            X, device="cuda")).cpu().numpy()
+    host_out = np.asarray([predict(list(r)) for r in X])
+    err = float(np.abs(card_out - host_out).max())
+    if not err <= WCDNN_PREDICT_TOL:
+        fail(f"wcdnn: numpy predictor vs card forward max |err| {err:.3e}")
+    if not math.isfinite(info["val_mae"]):
+        fail(f"wcdnn: val_mae {info['val_mae']}")
+    if Path(wcdnn.DEFAULT_CKPT).exists():
+        fail(f"wcdnn: {wcdnn.DEFAULT_CKPT} exists: the default checkpoint "
+             "must not be written")
+    emit({"phase": "train", "run": "wcdnn", "card": card,
+          "rows": int(len(X)), "dataset_s": t_data, "train_s": t_train,
+          "epochs": 40, "train_l1": info["train_l1"],
+          "val_mae": info["val_mae"], "numpy_vs_card_max_abs_err": err,
+          "tolerance": WCDNN_PREDICT_TOL, "saved_to": "a temporary path"})
+
+
+def phase_train(torch, kernels) -> tuple:
+    """Training (the slice of PR 23): B5's gradient kernel against the plain
+    backward and timed, the f32 card == CPU parity of 3 train steps, the
+    published mamba2-130m, zamba2-1.2b (and qwen2.5-3b at QWEN_CUT depth)
+    trained through ``launch.train``, the torch ``train_draft`` example and
+    WC-DNN. Returns (the launch counts of the ``launch.train`` runs, the
+    main path; errors; times)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    card = smi_line()
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    share, top = check_ssd_bwd(torch, gen, dev)
+    err = {"ssd_scan_bwd": top, "ssd_scan_bwd_share": share}
+    lap("grad_check")
+    times = time_ssd_bwd(torch, gen, dev)
+    emit({"phase": "train_kernel_times", "card": card, **times})
+    lap("grad_times")
+    train_parity(torch, kernels, card)
+    lap("parity")
+    totals = train_runs(torch, kernels, card)
+    lap("runs")
+    train_draft_example(card)
+    lap("draft")
+    train_wcdnn(torch, card)
+    lap("wcdnn")
+    emit({"phase": "train", "seconds": seconds})
+    return totals, err, times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4692,6 +5129,14 @@ def main(argv=None) -> int:
             idle += [k for k in main_path if not phase_totals.get(k)]
             _add(totals, phase_totals)
             seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_t = {}
+    if "train" in phases:
+        train_totals, train_err, train_t = phase_train(torch, kernels)
+        idle += [k for k in TRAIN_KERNELS if not train_totals.get(k)]
+        _add(totals, train_totals)
+        err.update(train_err)
+        seconds["train"] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
     csrc = "src/repro_torch/csrc/"
     replaces = {
@@ -4715,6 +5160,11 @@ def main(argv=None) -> int:
                        "cdf_sample_kernel"),
         "ssd_scan": (csrc + "ssd_scan.cu",
                      "src/repro/kernels/ssd/ssd.py:30", "_ssd_kernel"),
+        # the reference has no backward kernel: it differentiates its jnp
+        # scan (src/repro/models/ssm.py:127) inside jax.value_and_grad
+        "ssd_scan_bwd": (csrc + "ssd_scan_bwd.cu",
+                         "src/repro/kernels/ssd/ssd.py:30",
+                         "none (gradient of _ssd_kernel's function)"),
     }
     slice_t, tree_t = times.get("slice", {}), times.get("tree", {})
     tree_t = dict(tree_t, **times.get("sampled", {}))
@@ -4725,6 +5175,8 @@ def main(argv=None) -> int:
     for name, (src, tpu, tpu_fn) in replaces.items():
         t = (dict(slice_t[name], shape=slice_t["shape"]) if name in slice_t
              else tree_t.get(name, {}))
+        if name == "ssd_scan_bwd":
+            t = train_t.get("mamba2_train", {})
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": tpu, "tpu_kernel": tpu_fn,
                "launches": totals.get(name),
@@ -4742,6 +5194,9 @@ def main(argv=None) -> int:
         if name == "ssd_scan" and ssd_t:
             row["long_context"] = ssd_t["s4096"]
             row["prefill"] = ssd_t["zamba2_prefill"]
+        if name == "ssd_scan_bwd" and train_t:
+            row["shapes"] = train_t
+            row["tolerance_share_used"] = err.get("ssd_scan_bwd_share")
         if name in ("tree_argmax", "tree_accept"):
             # the served path runs B4a and B4b as one kernel, counted as
             # tree_verify; this row's own wrapper launches 0 times there

@@ -2,5 +2,5 @@
 
 from . import model
 from .stabilize import StabilizerConfig, WindowStabilizer
-from .model import (WCDNNParams, bootstrap_gamma, default_predictor, load,
-                    numpy_predictor)
+from .model import (WCDNNParams, bootstrap_gamma, default_predictor, forward,
+                    init, load, numpy_predictor, save, set_normalization)

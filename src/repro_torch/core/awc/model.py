@@ -1,19 +1,32 @@
-"""WC-DNN deployment paths (paper §4.1, §4.3): the numpy predictor over a
-saved checkpoint and the analytic bootstrap controller.
+"""WC-DNN — the AWC window-control network (paper §4.1, §4.3, Fig. 3), the
+port of the reference ``core/awc/model.py``.
 
-A copy of the numpy-only parts of the reference ``core/awc/model.py``
-(``numpy_predictor``, ``load``, ``bootstrap_gamma``,
-``default_predictor``). Training the network (``init``/``forward``/``save``
-and ``awc/train.py``) comes with ROADMAP item A15; ``load`` returns the
-parameters as numpy arrays.
+A residual MLP: the 7-dim feature vector → input projection → residual
+blocks with SiLU → a scalar head predicting the speculation window γ as a
+continuous value. Features are z-normalized with statistics stored inside
+the parameters, so a deployed predictor is self-contained.
+
+- :func:`init` / :func:`set_normalization` / :func:`forward` — the network
+  in PyTorch for training (``awc/train.py``), parameters float32 tensors
+  (``init`` draws from a seeded ``torch.Generator``, not the reference's
+  ``jax.random`` numbers);
+- :func:`save` / :func:`load` — the reference's ``.npz`` layout, so each
+  package reads the other's checkpoint (``load`` returns numpy arrays);
+- :func:`numpy_predictor` — sub-microsecond per-call inference for the
+  serving loop and the simulator, from numpy or tensor parameters;
+- :func:`bootstrap_gamma` — the analytic controller used before any
+  training data exists, and :func:`default_predictor`.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Callable, NamedTuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 # fused-mode tokens stream edge-ward one control round trip per this many
 # committed tokens: mirrors repro_torch.sim.network.DEFAULT_FUSED_CHUNK, not
@@ -37,14 +50,64 @@ class WCDNNParams(NamedTuple):
     b_out: np.ndarray       # (1,)
 
 
+def init(seed: int = 0, hidden: int = 64, n_blocks: int = 2,
+         device="cpu") -> WCDNNParams:
+    """He-normal weights (std sqrt(2 / fan_in)) from a ``torch.Generator``
+    seeded with ``seed``, zero biases, the head scaled by 0.1 and its bias
+    at the paper's default γ = 4; identity normalization. Float32 tensors
+    on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def dense(fan_in, fan_out):
+        w = torch.empty((fan_in, fan_out), **f32)
+        return w.normal_(0.0, 1.0, generator=gen) * math.sqrt(2.0 / fan_in)
+
+    w_in, w_out = dense(FEATURE_DIM, hidden), dense(hidden, 1) * 0.1
+    blocks = tuple((dense(hidden, hidden), torch.zeros(hidden, **f32),
+                    dense(hidden, hidden), torch.zeros(hidden, **f32))
+                   for _ in range(n_blocks))
+    return WCDNNParams(
+        feat_mean=torch.zeros(FEATURE_DIM, **f32),
+        feat_std=torch.ones(FEATURE_DIM, **f32),
+        w_in=w_in, b_in=torch.zeros(hidden, **f32), blocks=blocks,
+        w_out=w_out, b_out=torch.full((1,), 4.0, **f32))
+
+
+def set_normalization(params: WCDNNParams,
+                      x: torch.Tensor) -> WCDNNParams:
+    """The feature statistics of ``x`` (N, FEATURE_DIM): mean and the
+    population std, floored at 1e-3."""
+    return params._replace(
+        feat_mean=x.mean(dim=0),
+        feat_std=torch.clamp(x.std(dim=0, correction=0), min=1e-3))
+
+
+def forward(params: WCDNNParams, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., FEATURE_DIM) → (...,) continuous γ prediction."""
+    h = (x - params.feat_mean) / params.feat_std
+    h = F.silu(h @ params.w_in + params.b_in)
+    for (w1, b1, w2, b2) in params.blocks:
+        r = F.silu(h @ w1 + b1)
+        h = h + F.silu(r @ w2 + b2)
+    return (h @ params.w_out + params.b_out)[..., 0]
+
+
+def _numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu").numpy()
+    return np.asarray(v)
+
+
 def numpy_predictor(params: WCDNNParams) -> Callable[[list[float]], float]:
-    """Sub-microsecond per-call inference for the serving loop."""
-    mean = np.asarray(params.feat_mean)
-    std = np.asarray(params.feat_std)
-    w_in, b_in = np.asarray(params.w_in), np.asarray(params.b_in)
-    blocks = [(np.asarray(w1), np.asarray(b1), np.asarray(w2), np.asarray(b2))
-              for (w1, b1, w2, b2) in params.blocks]
-    w_out, b_out = np.asarray(params.w_out), np.asarray(params.b_out)
+    """Sub-microsecond per-call inference for the serving loop (numpy or
+    tensor parameters; tensors are copied to the host once)."""
+    mean = _numpy(params.feat_mean)
+    std = _numpy(params.feat_std)
+    w_in, b_in = _numpy(params.w_in), _numpy(params.b_in)
+    blocks = [tuple(map(_numpy, blk)) for blk in params.blocks]
+    w_out, b_out = _numpy(params.w_out), _numpy(params.b_out)
 
     def silu(v):
         # numerically stable x·sigmoid(x)
@@ -61,6 +124,21 @@ def numpy_predictor(params: WCDNNParams) -> Callable[[list[float]], float]:
         return float((h @ w_out + b_out)[0])
 
     return predict
+
+
+def save(params: WCDNNParams, path: str) -> None:
+    """The reference's ``.npz`` layout (``blk{i}_w1`` … and ``n_blocks``),
+    so ``repro.core.awc.model.load`` reads it."""
+    flat = {
+        "feat_mean": params.feat_mean, "feat_std": params.feat_std,
+        "w_in": params.w_in, "b_in": params.b_in,
+        "w_out": params.w_out, "b_out": params.b_out,
+        "n_blocks": np.asarray(len(params.blocks)),
+    }
+    for i, (w1, b1, w2, b2) in enumerate(params.blocks):
+        flat[f"blk{i}_w1"], flat[f"blk{i}_b1"] = w1, b1
+        flat[f"blk{i}_w2"], flat[f"blk{i}_b2"] = w2, b2
+    np.savez(path, **{k: _numpy(v) for k, v in flat.items()})
 
 
 def load(path: str) -> WCDNNParams:

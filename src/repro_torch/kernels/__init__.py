@@ -10,7 +10,9 @@
 - verify.verify — sampled verify: the gather/residual-mass pass and the
   inverse-CDF sample (replace ``repro/kernels/verify/verify.py``),
 - ssd — the Mamba2 SSD chunked scan (replaces
-  ``repro/kernels/ssd/ssd.py``).
+  ``repro/kernels/ssd/ssd.py``) and its gradient, ``ssd_scan_bwd`` (the
+  reference has no backward kernel: it differentiates its jnp scan; the
+  port trains through B5, so its gradient is a kernel too).
 
 The CUDA sources live in ``repro_torch/csrc``. They are compiled at first
 use with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
@@ -56,7 +58,7 @@ LAUNCHES: dict[str, int] = {"decode_attn": 0, "paged_decode_attn": 0,
                             "tree_argmax": 0, "tree_accept": 0,
                             "tree_verify": 0,
                             "gather_reduce": 0, "cdf_sample": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -208,6 +210,11 @@ _SIGNATURES = {
     # dtype, stream
     "ssd_scan_launch": [_P] * 10 + [_I] * 7 + [_P],
     "ssd_scan_chunk": [],
+    # x, Bm, Cm, dt, A, h_in, dy, dh_out, dx, dB, dC, ddt, dA, dh_in,
+    # ckpt, dxp, dBp, dCp, ddtp, dAp, B, S, nh, hd, N, dtype, stream
+    "ssd_scan_bwd_launch": [_P] * 20 + [_I] * 6 + [_P],
+    "ssd_scan_bwd_interval": [_I, _I],
+    "ssd_scan_bwd_cols": [_I],
 }
 
 

@@ -8,7 +8,13 @@ reference oracles ``repro/kernels/ssd/ref.py`` and of the chunked jnp path
   the CPU path runs and what ``chip_smoke.py`` holds the kernel to;
 - :func:`ssd_state_passing_plain` — the kernel's three-phase decomposition
   (chunk states, a pass over the chunks, outputs) in its chunk of 64
-  tokens; the CPU tests hold it to the reference, and no path runs it.
+  tokens; the CPU tests hold it to the reference, and no path runs it;
+- :func:`ssd_chunked_plain_bwd` — the scan's gradient as autograd of
+  :func:`ssd_chunked_plain`: what ``chip_smoke.py`` holds ``ssd_scan_bwd``
+  to (the CPU path of training differentiates the plain scan the same way);
+- :func:`ssd_reverse_recurrence_bwd` — the gradient as ``ssd_scan_bwd``
+  computes it (checkpoints, a group re-run, the reverse recurrence of
+  ∂L/∂h), for debugging the kernel's design on the CPU; no path runs it.
 
 Shapes: x (B, S, nh, hd); Bm, Cm (B, S, N) shared across heads; dt
 (B, S, nh) f32, already softplus'ed; A (nh,) f32, negative; h_in
@@ -49,7 +55,12 @@ def ssd_chunk_plain(x, Bm, Cm, dt, A, h_in):
     seg = Lc[:, :, None, :] - Lc[:, None, :, :]               # (B, t, s, nh)
     causal = torch.ones((L, L), dtype=torch.bool,
                         device=x.device).tril()[None, :, :, None]
-    w = torch.where(causal, torch.exp(seg), torch.zeros_like(seg))
+    # masked before the exp, not after: the same values (exp(−inf) = 0),
+    # but the gradient of exp at the masked entries, where seg > 0 can
+    # overflow, is 0·0 instead of 0·inf = NaN (the reference's
+    # where(mask, exp(seg), 0) has that NaN in its gradient)
+    w = torch.exp(torch.where(causal, seg, torch.full_like(seg,
+                                                           float("-inf"))))
     cb = torch.einsum("btn,bsn->bts", C32, B32)
     scores = cb[..., None] * w * dt[:, None, :, :]
     y_intra = torch.einsum("btsh,bshd->bthd", scores, x32)
@@ -135,3 +146,71 @@ def ssd_state_passing_plain(x, Bm, Cm, dt, A, h_in,
     y = (torch.cat(ys, dim=1) if ys
          else x.new_zeros(x.shape, dtype=torch.float32))
     return y, h
+
+
+def ssd_chunked_plain_bwd(x, Bm, Cm, dt, A, h_in, dy, dh_out,
+                          chunk: int = KERNEL_CHUNK):
+    """Gradients of :func:`ssd_chunked_plain`'s (y, h_out) with respect to
+    (x, Bm, Cm, dt, A, h_in), given dy and dh_out, by autograd; each comes
+    back in its input's dtype."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x, Bm, Cm, dt, A, h_in)]
+        y, h = ssd_chunked_plain(*ins, chunk)
+        return torch.autograd.grad((y, h), ins, (dy, dh_out))
+
+
+def ssd_reverse_recurrence_bwd(x, Bm, Cm, dt, A, h_in, dy, dh_out,
+                               interval: int = 8):
+    """The scan's gradient by ``ssd_scan_bwd``'s algorithm, in float32:
+
+    - forward over the sequence from h_in, keeping the state at the start
+      of every group of ``interval`` steps (the kernel's checkpoints);
+    - the groups from the last: re-run the group from its checkpoint
+      keeping every h_t, then walk it backwards carrying g = ∂L/∂h_t,
+      g_t = dy_t ⊗ C_t + a_{t+1}·g_{t+1} (g starts at dh_out), with
+      dx_t = dt_t·(g_t·B_t), dB_t = dt_t·Σ_{head,d} g_t x_t, dC_t =
+      Σ_{head,d} dy_t h_t, dla_t = a_t·<g_t, h_{t−1}>, ddt_t = x_t·(g_t·B_t)
+      + A·dla_t, dA = Σ dt_t·dla_t, and dh_in = a_0·g_0.
+
+    Returns (dx, dBm, dCm in x's dtype; ddt, dA, dh_in float32)."""
+    Bsz, S, nh, hd = x.shape
+    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+    dt32, A32, dy32 = dt.float(), A.float(), dy.float()
+    a = torch.exp(A32[None, None, :] * dt32)                   # (B, S, nh)
+
+    def step(h, t):
+        return (a[:, t, :, None, None] * h + dt32[:, t, :, None, None]
+                * x32[:, t, :, :, None] * B32[:, t, None, None, :])
+
+    ckpts, h = [], h_in.float()
+    for t0 in range(0, S, interval):
+        ckpts.append(h)
+        for t in range(t0, min(S, t0 + interval)):
+            h = step(h, t)
+    dx = torch.zeros_like(x32)
+    dB, dC = torch.zeros_like(B32), torch.zeros_like(C32)
+    ddt, dA = torch.zeros_like(dt32), torch.zeros_like(A32)
+    g = dh_out.float()
+    a_next = torch.ones_like(a[:, 0])
+    for j in reversed(range(len(ckpts))):
+        t0 = j * interval
+        hist = [ckpts[j]]
+        for t in range(t0, min(S, t0 + interval)):
+            hist.append(step(hist[-1], t))
+        for t in reversed(range(t0, min(S, t0 + interval))):
+            h_t, h_prev = hist[t - t0 + 1], hist[t - t0]
+            g = a_next[..., None, None] * g \
+                + dy32[:, t, :, :, None] * C32[:, t, None, None, :]
+            gB = (g * B32[:, t, None, None, :]).sum(-1)          # (B, nh, hd)
+            dx[:, t] = dt32[:, t, :, None] * gB
+            dB[:, t] = (dt32[:, t, :, None, None] * g
+                        * x32[:, t, :, :, None]).sum((1, 2))
+            dC[:, t] = (dy32[:, t, :, :, None] * h_t).sum((1, 2))
+            dla = a[:, t] * (g * h_prev).sum((-1, -2))           # (B, nh)
+            xg = (x32[:, t] * gB).sum(-1)
+            ddt[:, t] = xg + A32 * dla
+            dA = dA + (dt32[:, t] * dla).sum(0)
+            a_next = a[:, t]
+    return (dx.to(x.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype), ddt, dA,
+            a_next[..., None, None] * g)

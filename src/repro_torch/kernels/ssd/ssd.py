@@ -1,9 +1,11 @@
-"""Wrapper of the hand-written CUDA SSD chunked-scan kernel (B5,
+"""Wrappers of the hand-written CUDA SSD chunked-scan kernel (B5,
 ``csrc/ssd_scan.cu``), the port of the Pallas kernel
-``repro/kernels/ssd/ssd.py`` (``_ssd_kernel`` via ``ssd_call``).
+``repro/kernels/ssd/ssd.py`` (``_ssd_kernel`` via ``ssd_call``), and of
+its gradient (``csrc/ssd_scan_bwd.cu``), which the reference has no kernel
+for.
 
-:func:`ssd_call` takes CUDA tensors only and launches the kernel; the
-device rule lives in :func:`.ops.ssd_chunked_kernel`."""
+:func:`ssd_call` and :func:`ssd_bwd_call` take CUDA tensors only and launch
+their kernels; the device rule lives in :func:`.ops.ssd_chunked_kernel`."""
 
 from __future__ import annotations
 
@@ -36,6 +38,31 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _check_inputs(x, Bm, Cm, dt, A, h_in, **grads) -> None:
+    """Type, shape, device and contiguity of the scan's inputs (x already
+    4-d on the card) and of the gradients ``grads`` (dy, dh_out) the
+    backward takes: raises ValueError."""
+    B, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    want = {"x": (x, x.dtype, (B, S, nh, hd)),
+            "Bm": (Bm, x.dtype, (B, S, N)), "Cm": (Cm, x.dtype, (B, S, N)),
+            "dt": (dt, f32, (B, S, nh)), "A": (A, f32, (nh,)),
+            "h_in": (h_in, f32, (B, nh, hd, N)),
+            "dy": (grads.get("dy"), f32, (B, S, nh, hd)),
+            "dh_out": (grads.get("dh_out"), f32, (B, nh, hd, N))}
+    for name, (t, dtype, shape) in want.items():
+        if t is None:
+            continue
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def ssd_call(x: torch.Tensor,      # (B, S, nh, hd) f32 / bf16
              Bm: torch.Tensor,     # (B, S, N), x's type
              Cm: torch.Tensor,     # (B, S, N), x's type
@@ -57,20 +84,7 @@ def ssd_call(x: torch.Tensor,      # (B, S, nh, hd) f32 / bf16
         raise ValueError(f"B5 takes head dim and state size in {DIMS}, got "
                          f"hd {hd}, N {N}")
     code = dtype_code(x.dtype)
-    for name, t, dt_, shape in (
-            ("Bm", Bm, x.dtype, (B, S, N)), ("Cm", Cm, x.dtype, (B, S, N)),
-            ("dt", dt, torch.float32, (B, S, nh)),
-            ("A", A, torch.float32, (nh,)),
-            ("h_in", h_in, torch.float32, (B, nh, hd, N))):
-        if t.dtype != dt_ or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {dt_} {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm), ("dt", dt), ("A", A),
-                    ("h_in", h_in)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_inputs(x, Bm, Cm, dt, A, h_in)
     lib = library()
     n_chunks = -(-S // lib.ssd_scan_chunk())
     hg = heads_per_block(B, n_chunks, nh)
@@ -93,3 +107,50 @@ def ssd_call(x: torch.Tensor,      # (B, S, nh, hd) f32 / bf16
     check_launch("ssd_scan", err)
     count_launch("ssd_scan")
     return y, h_out
+
+
+def ssd_bwd_call(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 dt: torch.Tensor, A: torch.Tensor, h_in: torch.Tensor,
+                 dy: torch.Tensor, dh_out: torch.Tensor):
+    """Launch ``ssd_scan_bwd``: the gradients of (y, h_out) = the scan of
+    :func:`ssd_call` with respect to its six inputs, given dy (B, S, nh, hd)
+    and dh_out (B, nh, hd, N) float32. Returns (dx, dBm, dCm in x's type;
+    ddt (B, S, nh), dA (nh,), dh_in float32). Bm and Cm are shared across
+    heads, so their gradients sum over heads; dA sums over batch and time.
+    The kernel re-runs the recurrence from h_in (checkpoints every
+    ``ssd_scan_bwd_interval`` steps in scratch allocated here) and sums the
+    column tiles' and heads' partials in a fixed order."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_bwd_call launches on cuda, not {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, nh, hd), got {tuple(x.shape)}")
+    B, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    if hd not in DIMS or N not in DIMS:
+        raise ValueError(f"ssd_scan_bwd takes head dim and state size in "
+                         f"{DIMS}, got hd {hd}, N {N}")
+    code = dtype_code(x.dtype)
+    _check_inputs(x, Bm, Cm, dt, A, h_in, dy=dy, dh_out=dh_out)
+    dev, f32 = x.device, torch.float32
+    lib = library()
+    K = lib.ssd_scan_bwd_interval(hd, N)
+    nct = N // lib.ssd_scan_bwd_cols(N)
+    groups = -(-S // K)
+
+    def new(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    dx, dB, dC = new(B, S, nh, hd, dtype=x.dtype), \
+        new(B, S, N, dtype=x.dtype), new(B, S, N, dtype=x.dtype)
+    ddt, dA, dh_in = new(B, S, nh), new(nh), new(B, nh, hd, N)
+    ckpt = new(B, nh, groups, hd, N)
+    dxp, dBp, dCp = new(B, S, nh, nct, hd), new(B, S, nh, N), \
+        new(B, S, nh, N)
+    ddtp, dAp = new(B, S, nh, nct), new(B, nct, nh)
+    err = lib.ssd_scan_bwd_launch(
+        *(t.data_ptr() for t in (x, Bm, Cm, dt, A, h_in, dy, dh_out, dx, dB,
+                                 dC, ddt, dA, dh_in, ckpt, dxp, dBp, dCp,
+                                 ddtp, dAp)),
+        B, S, nh, hd, N, code, stream_ptr(x))
+    check_launch("ssd_scan_bwd", err)
+    count_launch("ssd_scan_bwd")
+    return dx, dB, dC, ddt, dA, dh_in

@@ -1,13 +1,14 @@
 """Grouped-query attention for the decode/verify path: qk_norm (qwen3),
 qkv bias (qwen2.5), sliding window, ring-buffer KV caches and
-pos_map-masked decode (speculative rollback; see models/kvcache.py), and
-the whisper encoder's bidirectional and the decoder's cross-attention.
+pos_map-masked decode (speculative rollback; see models/kvcache.py), the
+whisper encoder's bidirectional and the decoder's cross-attention, and the
+full-sequence causal attention of training (:func:`attention_train`).
 
 Functions are per-layer; model.py loops over the layer-stacked params. The
 attention over the cache runs in the decode-attention kernels (B1 dense,
 B2 paged); the projections stay ``torch.matmul``. The encoder's and the
-cross-attention's softmax over a whole (T, S) score matrix is plain
-PyTorch, as the reference computes it in plain jnp."""
+cross-attention's and training's softmax over a whole (T, S) score matrix
+is plain PyTorch, as the reference computes it in plain jnp."""
 
 from __future__ import annotations
 
@@ -118,6 +119,45 @@ def attention_bidir(x: torch.Tensor, p: dict, cfg: ModelConfig
     k, v = _project_kv(x, p, cfg)
     k = apply_rope(k, positions, cfg.rope_theta)
     return _gqa_out(_softmax_in(_gqa_scores(q, k), x.dtype), v, p["wo"])
+
+
+def attention_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                    window: Optional[int] = None, prefix_len: int = 0,
+                    q_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence causal GQA self-attention of training (the reference's
+    ``attention_train``): RoPE over positions 0..T−1 on q and k, a sliding
+    window (``window``, else ``cfg.sliding_window``; 0 is full), and a
+    bidirectional prefix of ``prefix_len`` tokens (the vlm's image tokens
+    attend freely within it).
+    A sequence longer than ``q_chunk`` and a multiple of it runs its
+    queries in chunks of ``q_chunk`` against the whole masked K, so the
+    (T, T) score matrix never exists at once. Scores in the model dtype,
+    softmax in float32, weights cast back. x (B, T, D) → (B, T, D)."""
+    T = x.shape[1]
+    positions = torch.arange(T, device=x.device, dtype=torch.int32)[None]
+    q = apply_rope(_project_q(x, p, cfg), positions, cfg.rope_theta)
+    k, v = _project_kv(x, p, cfg)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    w = window if window is not None else cfg.sliding_window
+    k_pos = torch.arange(T, device=x.device)[None, :]
+
+    def masked_attend(q_blk: torch.Tensor, offset: int) -> torch.Tensor:
+        q_pos = torch.arange(q_blk.shape[1], device=x.device)[:, None] \
+            + offset
+        mask = k_pos <= q_pos
+        if w > 0:
+            mask = mask & (k_pos > q_pos - w)
+        if prefix_len > 0:
+            mask = mask | ((q_pos < prefix_len) & (k_pos < prefix_len))
+        scores = torch.where(mask[None, None],
+                             _gqa_scores(q_blk, k).float(),
+                             torch.tensor(float("-inf"), device=x.device))
+        return _gqa_out(_softmax_in(scores, x.dtype), v, p["wo"])
+
+    if T <= q_chunk or T % q_chunk != 0:
+        return masked_attend(q, 0)
+    return torch.cat([masked_attend(q[:, c:c + q_chunk], c)
+                      for c in range(0, T, q_chunk)], dim=1)
 
 
 def attention_cross(x: torch.Tensor, p: dict, cfg: ModelConfig,

@@ -15,6 +15,7 @@
 The API mirrors the reference ``repro/models/model.py``::
 
     params = model.init_params(seed)
+    logits, aux = model.forward_train(params, batch)
     logits, cache = model.prefill(params, tokens, slots=N)
     logits, cache = model.decode_step(params, token, cache, pos)   # T = 1
     logits, cache = model.verify_step(params, window, cache, pos)  # T = γ+1
@@ -36,11 +37,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import PAGED_FAMILIES, ModelConfig
 from . import moe
 from .attention import (attention_bidir, attention_cross, attention_decode,
-                        attention_decode_paged, cross_kv, init_attn_params)
+                        attention_decode_paged, attention_train, cross_kv,
+                        init_attn_params)
 from .kvcache import (EncDecCache, HybridCacheT, PagedAttnCache, SSMCache,
                       init_attn_cache, init_paged_attn_cache, init_ssm_cache)
 from .layers import dense_init, dtype_of, rms_norm, rope_angles, swiglu
@@ -55,6 +58,15 @@ STACK_FAMILIES = ("dense", "vlm", "moe")
 def _layer(tree: dict, l: int) -> dict:
     return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
             for k, v in tree.items()}
+
+
+def _unbind(tree: dict, n: int) -> list[dict]:
+    """The ``n`` per-layer dicts of a layer-stacked tree, each leaf split
+    by one ``unbind`` (its backward stacks the layers' gradients once;
+    indexing layer by layer would build a full-size gradient per layer)."""
+    parts = {k: (_unbind(v, n) if isinstance(v, dict) else v.unbind(0))
+             for k, v in tree.items()}
+    return [{k: v[l] for k, v in parts.items()} for l in range(n)]
 
 
 class Model:
@@ -133,18 +145,118 @@ class Model:
         m = lp["mlp"]
         return h + swiglu(hn, m["w_gate"], m["w_up"], m["w_down"])
 
+    def _mlp_or_moe(self, lp: dict, h: torch.Tensor):
+        """The residual FFN of one block and its aux loss (the reference's
+        ``_mlp_or_moe``): the MoE block's load-balance term for a moe
+        layer, a float32 zero otherwise."""
+        hn = rms_norm(h, lp["ln2"], self.cfg.norm_eps)
+        if "moe" in lp:
+            y, aux = moe.moe_block(hn, lp["moe"], self.cfg)
+            return h + y, aux
+        m = lp["mlp"]
+        return (h + swiglu(hn, m["w_gate"], m["w_up"], m["w_down"]),
+                torch.zeros((), dtype=torch.float32, device=h.device))
+
     def _encode(self, params, frontend: torch.Tensor) -> torch.Tensor:
         """The whisper encoder over the frontend's frame embeddings (B, F,
-        D): bidirectional blocks, then ``enc_norm``."""
+        D): bidirectional blocks, then ``enc_norm`` (each block under
+        :meth:`_remat` when training)."""
         cfg = self.cfg
-        h = frontend.to(self.dtype)
-        enc = params["encoder"]
-        for l in range(cfg.encoder_layers):
-            lp = _layer(enc, l)
+
+        def enc_layer(h, lp):
             h = h + attention_bidir(rms_norm(h, lp["ln1"], cfg.norm_eps),
                                     lp["attn"], cfg)
-            h = self._mlp(lp, h)
+            return self._mlp(lp, h)
+
+        h = frontend.to(self.dtype)
+        for lp in _unbind(params["encoder"], cfg.encoder_layers):
+            h = self._remat(enc_layer, h, lp)
         return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+    # ---------------------------------------------------------- train forward
+
+    def _remat(self, fn, *args):
+        """``fn(*args)``, its activations recomputed in the backward pass
+        when ``cfg.remat`` (the reference's ``jax.checkpoint``)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def forward_train(self, params, batch: dict):
+        """batch: {"tokens": (B, S) int, and for encdec/vlm "frontend":
+        (B, F, D)}. Returns (float32 logits over the token positions (B, S,
+        V), the summed aux loss: the MoE layers' load-balance terms, a
+        float32 zero for the other families)."""
+        cfg = self.cfg
+        h = params["embed"][batch["tokens"].long()]
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        layers = _unbind(params["layers"], cfg.n_layers)
+        eps = cfg.norm_eps
+
+        if cfg.arch_type == "encdec":
+            enc_out = self._encode(params, batch["frontend"])
+
+            def dec_layer(h, lp, enc_out):
+                h = h + attention_train(rms_norm(h, lp["ln1"], eps),
+                                        lp["attn"], cfg)
+                h = h + attention_cross(rms_norm(h, lp["ln_x"], eps),
+                                        lp["xattn"], cfg,
+                                        *cross_kv(lp["xattn"], cfg, enc_out))
+                return self._mlp_or_moe(lp, h)[0]
+
+            for lp in layers:
+                h = self._remat(dec_layer, h, lp, enc_out)
+            return self._logits(params, h), zero
+
+        if cfg.arch_type in STACK_FAMILIES:
+            prefix = 0
+            if cfg.arch_type == "vlm":
+                fe = batch["frontend"].to(self.dtype)      # (B, P, D)
+                prefix = fe.shape[1]
+                h = torch.cat([fe, h], dim=1)
+
+            def layer(h, lp):
+                h = h + attention_train(rms_norm(h, lp["ln1"], eps),
+                                        lp["attn"], cfg, prefix_len=prefix)
+                return self._mlp_or_moe(lp, h)
+
+            aux = zero
+            for lp in layers:
+                h, a = self._remat(layer, h, lp)
+                aux = aux + a
+            return self._logits(params, h[:, prefix:] if prefix else h), aux
+
+        if cfg.arch_type == "hybrid":
+            return self._logits(params, self._hybrid_train(params, h,
+                                                           layers)), zero
+        for lp in layers:
+            h = self._remat(self._mamba_train, h, lp)
+        return self._logits(params, h), zero
+
+    def _mamba_train(self, h: torch.Tensor, lp: dict) -> torch.Tensor:
+        """One residual Mamba2 layer over the whole sequence from a zero
+        state (B5 on the card, forward and backward)."""
+        y, _ = ssm_block_train(rms_norm(h, lp["ln1"], self.cfg.norm_eps),
+                               lp["ssm"], self.cfg)
+        return h + y
+
+    def _hybrid_train(self, params, h: torch.Tensor,
+                      layers: list[dict]) -> torch.Tensor:
+        """The reference's ``_hybrid_train``: segments of ``attn_every``
+        Mamba2 layers, each followed by the shared attention block over the
+        whole sequence, then the trailing Mamba2 layers."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        every, n_seg, _ = self._hybrid_segments()
+        sp = params["shared_attn"]
+        m = sp["mlp"]
+        for l, lp in enumerate(layers):
+            h = self._remat(self._mamba_train, h, lp)
+            if (l + 1) % every == 0 and l // every < n_seg:
+                h = h + attention_train(rms_norm(h, sp["ln1"], eps),
+                                        sp["attn"], cfg)
+                h = h + swiglu(rms_norm(h, sp["ln2"], eps), m["w_gate"],
+                               m["w_up"], m["w_down"])
+        return h
 
     # ------------------------------------------------------------------ cache
 
