@@ -402,7 +402,8 @@ def phase_build(kernels):
     for label, names in (("decode_attention", ("decode_attn.cu",
                                                "paged_decode_attn.cu")),
                          ("ssd_scan", ("ssd_scan.cu", "ssd_scan_f32.cu")),
-                         ("ssd_scan_bwd", ("ssd_scan_bwd.cu",)),
+                         ("ssd_scan_bwd", ("ssd_scan_bwd.cu",
+                                           "ssd_scan_bwd_f32.cu")),
                          ("sampled_verify", ("sampled_verify.cu",))):
         entries = []
         for name in names:
@@ -4661,17 +4662,30 @@ def fleet_sim(real: dict) -> None:
 # ------------------------------------------------------------------- train
 
 TRAIN_KERNELS = ("ssd_scan", "ssd_scan_bwd")
-# (model whose SSM widths, B, S, nh, hd, N) of the gradient checks: one
-# chunk, many, and a length that is no multiple of 64 nor of the kernel's
-# checkpoint interval
+# (model whose SSM widths, B, S, nh, hd, N, dt scale) of the gradient
+# checks: one chunk, many, and a length that is no multiple of 64; then
+# Σ A·dt far above 88 inside a 64-token chunk (dt 8× softplus: the
+# reference's own gradient overflows there, the kernel's every exp is of a
+# range sum ≤ 0), an odd S of one chunk (one launch, rows cut at 37), and
+# the shapes the training runs and SSD_BWD_TIMED give it, whose heads per
+# block (8 at both training shapes, 2 at zamba2_verify's one chunk) no
+# smaller case reaches; check_ssd_bwd fails if a timed shape's
+# configuration is checked at none
 SSD_BWD_CASES = tuple(
-    (name, B, S, nh, hd, N)
+    (name, B, S, nh, hd, N, 1.0)
     for name, nh, hd, N in (("zamba2-1.2b", 64, 64, 64),
                             ("mamba2-130m", 24, 64, 128))
-    for B, S in ((2, 64), (2, 512), (1, 2048), (2, 1001)))
+    for B, S in ((2, 64), (2, 512), (1, 2048), (2, 1001))) + (
+    ("mamba2-130m", 2, 200, 24, 64, 128, 8.0),
+    ("zamba2-1.2b", 3, 37, 64, 64, 64, 1.0),
+    ("mamba2-130m", 8, 1024, 24, 64, 128, 1.0),
+    ("zamba2-1.2b", 4, 1024, 64, 64, 64, 1.0),
+    ("zamba2-1.2b", 4, 9, 64, 64, 64, 1.0))
+SSD_BWD_OVERFLOW = 88.0   # |Σ A·dt| in a chunk past which exp(−Σ) overflows
 # per gradient, |kernel − plain| ≤ share·(max|plain| + |plain|): float32,
-# two f32 algorithms in another order (the kernel's sequential recurrence,
-# the plain chunked einsums); bfloat16 adds one rounding of dx/dB/dC to
+# two f32 algorithms in another order (the kernel's split-TF32 products and
+# rectangle sums, the plain chunked einsums and autograd); bfloat16 adds
+# one rounding of dx/dB/dC to
 # bf16 on each side (2⁻⁸ relative)
 SSD_BWD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 GRAD_NAMES = ("dx", "dBm", "dCm", "ddt", "dA", "dh_in")
@@ -4683,7 +4697,9 @@ SSD_BWD_TIMED = (("zamba2_verify", 4, 9, 64, 64, 64),
                  ("mamba2_train", 8, 1024, 24, 64, 128),
                  ("zamba2_train", 4, 1024, 64, 64, 64))
 # the full training runs: (arch, batch, seq, steps, layers or None, peak
-# lr; the launcher's cosine schedule warms up over 20 steps)
+# lr; the launcher's cosine schedule warms up over 20 steps); the runs of
+# TRAIN_PROFILED profile one more step after the timed ones
+TRAIN_PROFILED = ("mamba2-130m", "zamba2-1.2b")
 TRAIN_RUNS = (("mamba2-130m", 8, 1024, 30, None, 1e-3),
               ("zamba2-1.2b", 4, 1024, 10, None, 3e-4),
               ("qwen2.5-3b", 4, 1024, 6, QWEN_CUT["qwen2.5-3b"], 3e-4))
@@ -4724,29 +4740,67 @@ def ssd_bwd_bound(B, S, nh, hd, N, esize):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype):
-    """:func:`ssd_inputs` (nonzero h_in) and dy, dh_out ~ N(0, 1) f32."""
-    args = ssd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype)
+def ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype, dt_scale=1.0):
+    """:func:`ssd_inputs` (nonzero h_in), dt scaled by ``dt_scale``, and
+    dy, dh_out ~ N(0, 1) f32."""
+    x, Bm, Cm, dt, A, h0 = ssd_inputs(torch, gen, dev, B, S, nh, hd, N,
+                                      dtype)
     dy = torch.randn((B, S, nh, hd), generator=gen, device=dev)
     dh = torch.randn((B, nh, hd, N), generator=gen, device=dev)
-    return args + (dy, dh)
+    return x, Bm, Cm, (dt_scale * dt).contiguous(), A, h0, dy, dh
+
+
+def chunk_decay_max(torch, dt, A) -> float:
+    """The largest |Σ A·dt| over one 64-token chunk of any (b, head)."""
+    B, S, nh = dt.shape
+    pad = (-S) % 64
+    a = torch.nn.functional.pad(dt * A, (0, 0, 0, pad))
+    return float(a.reshape(B, -1, 64, nh).sum(2).abs().max())
+
+
+def ssd_bwd_config(torch, B, S, nh, hd, N, dtype) -> tuple:
+    """What an ``ssd_scan_bwd`` call's code depends on: (hd, N, dtype, heads
+    per block after the kernel's shared-memory clamp, one chunk or more)."""
+    from repro_torch.kernels import dtype_code, library
+    from repro_torch.kernels.ssd.ssd import bwd_heads_per_block
+    lib = library()
+    nch = -(-S // lib.ssd_scan_chunk())
+    hg = lib.ssd_scan_bwd_heads(hd, N, dtype_code(dtype),
+                                bwd_heads_per_block(B, nch, nh))
+    return hd, N, str(dtype)[6:], hg, nch <= 1
 
 
 def check_ssd_bwd(torch, gen, dev) -> tuple:
     """``ssd_scan_bwd`` (its wrapper) against the plain backward (autograd
     of the chunked plain scan) on the same card tensors, TF32 off, at
     SSD_BWD_CASES in f32 and bf16: every gradient finite, of the input's
-    shape and type, within SSD_BWD_TOL. Returns the largest share of the
-    tolerance used and the largest |kernel − plain| of any gradient; prints
-    each case's largest error per gradient."""
+    shape and type, within SSD_BWD_TOL, and bit-identical in a second call
+    on the same inputs (fixed sum order, no float atomics); the overflow
+    case's inputs really pass SSD_BWD_OVERFLOW, and every configuration
+    (:func:`ssd_bwd_config`) of SSD_BWD_TIMED is among the checked ones.
+    Returns the largest share
+    of the tolerance used and the largest |kernel − plain| of any gradient;
+    prints each case's largest error per gradient."""
     from repro_torch.kernels.ssd import ssd_bwd_call, ssd_chunked_plain_bwd
-    worst, top, rows = 0.0, 0.0, []
-    for name, B, S, nh, hd, N in SSD_BWD_CASES:
+    worst, top, rows, checked = 0.0, 0.0, [], set()
+    for name, B, S, nh, hd, N, scale in SSD_BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            ins = ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype)
+            conf = ssd_bwd_config(torch, B, S, nh, hd, N, dtype)
+            checked.add(conf)
+            ins = ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N, dtype,
+                                 scale)
+            decay = chunk_decay_max(torch, ins[3], ins[4])
+            if scale != 1.0 and not decay > SSD_BWD_OVERFLOW:
+                fail(f"ssd_scan_bwd {name} S {S}: the overflow case's "
+                     f"largest |Σ A·dt| in a chunk is {decay:.1f}")
             got = ssd_bwd_call(*ins)
+            again = ssd_bwd_call(*ins)
             want = ssd_chunked_plain_bwd(*ins, 64)
             torch.cuda.synchronize()
+            for gname, a_, b_ in zip(GRAD_NAMES, got, again):
+                if not torch.equal(a_, b_):
+                    fail(f"ssd_scan_bwd {name} S {S} {dtype}: {gname} "
+                         "differs between two calls on the same inputs")
             share = SSD_BWD_TOL[str(dtype)[6:]]
             errs = {}
             for gname, a_, b_, x_ in zip(GRAD_NAMES, got, want, ins):
@@ -4771,36 +4825,51 @@ def check_ssd_bwd(torch, gen, dev) -> tuple:
                 errs[gname] = float(d.max())
                 top = max(top, errs[gname])
             rows.append({"ssm": name, "B": B, "S": S, "nh": nh, "hd": hd,
-                         "N": N, "dtype": str(dtype)[6:],
-                         "max_abs_err": errs})
+                         "N": N, "dt_scale": scale, "heads_per_block":
+                         conf[3], "max_chunk_decay": decay,
+                         "dtype": str(dtype)[6:], "max_abs_err": errs})
+            del ins, got, again, want
+    for label, B, S, nh, hd, N in SSD_BWD_TIMED:
+        conf = ssd_bwd_config(torch, B, S, nh, hd, N, torch.bfloat16)
+        if conf not in checked:
+            fail(f"ssd_scan_bwd: {label}'s configuration {conf} (hd, N, "
+                 "dtype, heads per block, one chunk) is timed but checked "
+                 "at no case of SSD_BWD_CASES")
     emit({"phase": "train", "check": "ssd_scan_bwd == plain backward",
           "cases": rows, "tolerance": {k: f"{v}·(max|plain| + |plain|)"
                                        for k, v in SSD_BWD_TOL.items()},
           "tolerance_share_used": worst, "h_in": "nonzero",
-          "dh_out": "nonzero", "allow_tf32": False})
+          "dh_out": "nonzero", "allow_tf32": False,
+          "two_calls_bit_identical": True})
     return worst, top
 
 
 def time_ssd_bwd(torch, gen, dev) -> dict:
     """``ssd_scan_bwd`` at SSD_BWD_TIMED (bf16): device time by CUDA-graph
     replay (a few calls per graph at the training shapes, whose scratch is
-    ~1 GB a call), beside B5's forward on the same inputs, the plain
-    backward (eager: autograd) and the bound; no PyTorch call computes
-    it (``library_ms`` null)."""
-    from repro_torch.kernels.ssd import (ssd_bwd_call, ssd_call,
-                                         ssd_chunked_plain_bwd)
+    ~0.2 GB a call), beside B5's forward on the same inputs, the state
+    recompute alone (B5's phases 1–2, the backward's phase 0; none for one
+    chunk) and its share of the call, the plain backward (eager: autograd)
+    and the bound; no PyTorch call computes it (``library_ms`` null); at
+    the training shapes the device ms of each kernel of a call
+    (:func:`ssd_bwd_breakdown`)."""
+    from repro_torch.kernels.ssd import (ssd_bwd_call, ssd_bwd_states,
+                                         ssd_call, ssd_chunked_plain_bwd)
     out = {}
     for label, B, S, nh, hd, N in SSD_BWD_TIMED:
         ins = ssd_bwd_inputs(torch, gen, dev, B, S, nh, hd, N,
                              torch.bfloat16)
         small = S <= 64
         bound, by = ssd_bwd_bound(B, S, nh, hd, N, 2)
+        ms = graph_ms(torch, lambda: ssd_bwd_call(*ins),
+                      iters=20 if small else 2, replays=5 if small else 3)
+        states_ms = 0.0 if small else graph_ms(
+            torch, lambda: ssd_bwd_states(*ins[:6]), iters=2, replays=3)
         out[label] = {
             "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "N": N,
                       "dtype": "bfloat16"},
-            "ms": graph_ms(torch, lambda: ssd_bwd_call(*ins),
-                           iters=20 if small else 2,
-                           replays=5 if small else 3),
+            "ms": ms, "state_recompute_ms": states_ms,
+            "state_recompute_share": states_ms / ms,
             "forward_ms": graph_ms(torch, lambda: ssd_call(*ins[:6]),
                                    iters=20 if small else 2,
                                    replays=5 if small else 3),
@@ -4809,7 +4878,80 @@ def time_ssd_bwd(torch, gen, dev) -> dict:
             "library_ms": None, "bound_ms": bound, "bound_by": by}
         del ins
         torch.cuda.empty_cache()
+    train = [(label, shape) for label, *shape in SSD_BWD_TIMED
+             if label.endswith("_train")]
+    for (label, _), parts in zip(train, ssd_bwd_breakdown(
+            [shape for _, shape in train])):
+        out[label]["breakdown"] = parts
     return out
+
+
+# the kernels of one multi-chunk ssd_scan_bwd call, in launch order
+SSD_BWD_PARTS = ("recompute: chunk states", "recompute: pass", "dstates",
+                 "reverse pass", "gradients", "sums of dB, dC, dA")
+
+
+def ssd_bwd_breakdown(shapes, calls: int = 3) -> list:
+    """:func:`ssd_bwd_profile` of each of ``shapes`` (B, S, nh, hd, N), in
+    one fresh process: in this one, after the phases that profile
+    CUDA-graph replays, the profiler came back without some or all of the
+    calls' kernel events (3 of 18 missing after phase ``capture``, all 18
+    after every phase). The child loads the library this process built."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; print(json.dumps([chip_smoke.ssd_bwd_profile("
+            "tuple(s), int(sys.argv[3])) for s in json.loads(sys.argv[2])]))")
+    try:
+        out = subprocess.run([sys.executable, "-c", code, str(ROOT),
+                              json.dumps([list(s) for s in shapes]),
+                              str(calls)],
+                             capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail(f"ssd_scan_bwd breakdown at {shapes}: no answer in 300 s")
+    if out.returncode:
+        fail(f"ssd_scan_bwd breakdown at {shapes}: exit {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def ssd_bwd_profile(shape, calls: int) -> dict:
+    """Device ms per kernel of ``calls`` ``ssd_scan_bwd`` calls of more
+    than one chunk on :func:`ssd_bwd_inputs` (bf16, seed 0) of ``shape``
+    (torch.profiler, CPU and CUDA activity, kernels taken in launch order
+    as SSD_BWD_PARTS), and each part's share of their sum; where the
+    kernel events do not come in that order, the device ms per kernel name
+    instead (dstates and gradients share one)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd import ssd_bwd_call
+    dev = torch.device("cuda")
+    ins = ssd_bwd_inputs(torch, torch.Generator(device=dev).manual_seed(0),
+                         dev, *shape, torch.bfloat16)
+    cuda = torch.autograd.DeviceType.CUDA
+    ssd_bwd_call(*ins)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd_bwd_call(*ins)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == cuda]
+    if len(ev) != calls * len(SSD_BWD_PARTS):
+        by_name = {}
+        for e in prof.key_averages():
+            if e.device_type == cuda:
+                t = getattr(e, "self_device_time_total", None)
+                if t is None:
+                    t = getattr(e, "self_cuda_time_total", 0.0)
+                by_name[e.key[:70]] = t / 1e3 / calls
+        return {"kernel_events": len(ev), "ms_by_kernel_name": by_name}
+    ms = {p: 0.0 for p in SSD_BWD_PARTS}
+    for i, e in enumerate(ev):
+        ms[SSD_BWD_PARTS[i % len(SSD_BWD_PARTS)]] += \
+            e.time_range.elapsed_us() / 1e3 / calls
+    total = sum(ms.values())
+    return {"ms": ms, "share": {p: v / total for p, v in ms.items()},
+            "total_ms": total}
 
 
 def train_parity(torch, kernels, card) -> None:
@@ -4929,10 +5071,24 @@ def train_runs(torch, kernels, card) -> dict:
     steps·L·(2 under remat: the checkpointed layer's forward re-runs in
     the backward pass) and ``ssd_scan_bwd`` = steps·L for the L Mamba2
     layers, no other kernel; s/step (steps after the first), tokens/s and
-    peak memory printed."""
+    peak memory printed. The TRAIN_PROFILED runs then profile one more step
+    (torch.profiler, CPU and CUDA activity): :func:`train_step_profile`.
+    That step is in no count or time above."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launcher
     totals = {k: 0 for k in kernels.LAUNCHES}
+
+    def profiled(arch, out):
+        def after(one_step):
+            out["launches"] = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                one_step()
+            out["wall_s"] = time.perf_counter() - t0
+            out["prof"] = prof
+        return after if arch in TRAIN_PROFILED else None
     for arch, B, S, steps, layers, lr in TRAIN_RUNS:
         argv = ["--arch", arch, "--full", "--device", "cuda", "--batch",
                 str(B), "--seq", str(S), "--steps", str(steps), "--lr",
@@ -4941,8 +5097,10 @@ def train_runs(torch, kernels, card) -> dict:
         if layers:
             argv += ["--layers", str(layers)]
         kernels.reset_launches()
-        s = launcher.run(launcher.parse_args(argv))
-        launches = dict(kernels.LAUNCHES)
+        prof = {}
+        s = launcher.run(launcher.parse_args(argv),
+                         after_steps=profiled(arch, prof))
+        launches = prof.get("launches", dict(kernels.LAUNCHES))
         cfg = get_config(arch)
         L = layers or cfg.n_layers
         mamba = L if cfg.arch_type in ("ssm", "hybrid") else 0
@@ -4967,9 +5125,40 @@ def train_runs(torch, kernels, card) -> dict:
               "launches": {k: v for k, v in launches.items() if v},
               "launch_formula": "ssd_scan = steps·L·(2 if remat), "
                                 "ssd_scan_bwd = steps·L"})
+        if "prof" in prof:
+            emit({"phase": "train", "check": "profiled step",
+                  "run": f"{arch} bf16 --full", "card": card,
+                  **train_step_profile(torch, prof.pop("prof"),
+                                       prof["wall_s"])})
         del s
         torch.cuda.empty_cache()
     return totals
+
+
+def train_step_profile(torch, prof, wall_s: float, top: int = 15) -> dict:
+    """One profiled training step: device ms of its kernels (CUDA events),
+    the top kernels, and the top ops (aten ops and autograd nodes, CPU
+    events) by the device time of the kernels each launched itself, each
+    with its share of the step's device time; the busy share is device ms
+    over the profiled wall (the profiler's host overhead included)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kern, ops = [], []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            (kern if ev.device_type == cuda else ops).append(
+                (t / 1e3, ev.count, ev.key))
+    device_ms = sum(r[0] for r in kern)
+
+    def rows(xs):
+        return [{"ms": ms, "calls": n, "share": ms / device_ms,
+                 "name": name[:90]}
+                for ms, n, name in sorted(xs, reverse=True)[:top]]
+    return {"step_wall_s_profiled": wall_s, "device_ms": device_ms,
+            "device_busy_share_profiled": device_ms / 1e3 / wall_s,
+            "top_ops": rows(ops), "top_kernels": rows(kern)}
 
 
 def train_draft_example(card) -> None:

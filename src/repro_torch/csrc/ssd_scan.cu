@@ -32,3 +32,31 @@ extern "C" int ssd_scan_launch(const void* x, const void* Bm, const void* Cm,
                                                  decay, B, S, nh, hg, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Phases 1–2 of a scan of more than one chunk alone, for the gradient
+// (ssd_scan_bwd recomputes the chunks' starting states rather than keeping
+// the forward's): states (B, nch, nh, hd, N) ← each chunk's starting state,
+// decay (B, nch, nh) ← exp(Σ A·dt) over each chunk, h_out ← the last state;
+// arguments as ssd_scan_launch's, no y. A call of one chunk or none has
+// no states to recompute and is refused.
+extern "C" int ssd_scan_states_launch(const void* x, const void* Bm,
+                                      const void* Cm, const void* dt,
+                                      const void* A, const void* h_in,
+                                      void* h_out, void* states, void* decay,
+                                      int B, int S, int nh, int hd, int N,
+                                      int hg, int dtype, void* stream) {
+  if (B <= 0 || nh <= 0) return 0;
+  if (S <= repro_torch::kL || hg < 1 || hg > repro_torch::kMaxHG ||
+      nh % hg != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return repro_torch::ssd_scan_f32(hd, N, x, Bm, Cm, dt, A, h_in, nullptr,
+                                     h_out, states, decay, B, S, nh, hg, st);
+  if (dtype == 1)
+    return repro_torch::launch_hd<__nv_bfloat16>(hd, N, x, Bm, Cm, dt, A,
+                                                 h_in, nullptr, h_out,
+                                                 states, decay, B, S, nh, hg,
+                                                 st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

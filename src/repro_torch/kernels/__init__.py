@@ -210,11 +210,14 @@ _SIGNATURES = {
     # dtype, stream
     "ssd_scan_launch": [_P] * 10 + [_I] * 7 + [_P],
     "ssd_scan_chunk": [],
+    # x, Bm, Cm, dt, A, h_in, h_out, states, decay, B, S, nh, hd, N, hg,
+    # dtype, stream: B5's chunk states alone, the backward's phase 0
+    "ssd_scan_states_launch": [_P] * 9 + [_I] * 7 + [_P],
     # x, Bm, Cm, dt, A, h_in, dy, dh_out, dx, dB, dC, ddt, dA, dh_in,
-    # ckpt, dxp, dBp, dCp, ddtp, dAp, B, S, nh, hd, N, dtype, stream
-    "ssd_scan_bwd_launch": [_P] * 20 + [_I] * 6 + [_P],
-    "ssd_scan_bwd_interval": [_I, _I],
-    "ssd_scan_bwd_cols": [_I],
+    # states, decay, gst, dBp, dCp, dAp, B, S, nh, hd, N, hg, dtype, stream
+    "ssd_scan_bwd_launch": [_P] * 20 + [_I] * 7 + [_P],
+    # hd, N, dtype, hg
+    "ssd_scan_bwd_heads": [_I] * 4,
 }
 
 

@@ -14,11 +14,11 @@ from .ssd import ssd_bwd_call, ssd_call
 class SSDScanFn(torch.autograd.Function):
     """B5 with its gradient: forward launches B5 (:func:`ssd_call`),
     backward launches ``ssd_scan_bwd`` (:func:`ssd_bwd_call`) on dy and
-    dh_out. The saved tensors are the six inputs: the backward kernel
-    re-runs the recurrence from h_in itself, rather than keeping B5's chunk
-    states (a one-chunk launch computes none, and under ``cfg.remat`` the
-    forward is re-run anyway), so a layer holds no scan state between its
-    forward and backward."""
+    dh_out. The saved tensors are the six inputs: the backward recomputes
+    B5's chunk states from them (its phases 1–2, a small share of the
+    backward) rather than keeping the forward's (a one-chunk launch computes
+    none, and under ``cfg.remat`` the forward is re-run anyway), so a layer
+    holds no scan state between its forward and backward."""
 
     @staticmethod
     def forward(ctx, x, Bm, Cm, dt, A, h_in):

@@ -12,9 +12,13 @@ reference oracles ``repro/kernels/ssd/ref.py`` and of the chunked jnp path
 - :func:`ssd_chunked_plain_bwd` — the scan's gradient as autograd of
   :func:`ssd_chunked_plain`: what ``chip_smoke.py`` holds ``ssd_scan_bwd``
   to (the CPU path of training differentiates the plain scan the same way);
-- :func:`ssd_reverse_recurrence_bwd` — the gradient as ``ssd_scan_bwd``
-  computes it (checkpoints, a group re-run, the reverse recurrence of
-  ∂L/∂h), for debugging the kernel's design on the CPU; no path runs it.
+- :func:`ssd_chunked_bwd_plain` — the gradient as ``ssd_scan_bwd``
+  computes it (B5's chunks in reverse: chunk states, dstates, a reverse
+  pass over the chunks, then per chunk the input gradients and da as a
+  sum over a rectangle); the CPU tests hold it to the reference, and no
+  path runs it;
+- :func:`ssd_reverse_recurrence_bwd` — the gradient by the token-by-token
+  reverse recurrence of ∂L/∂h, the ground truth; no path runs it.
 
 Shapes: x (B, S, nh, hd); Bm, Cm (B, S, N) shared across heads; dt
 (B, S, nh) f32, already softplus'ed; A (nh,) f32, negative; h_in
@@ -160,12 +164,95 @@ def ssd_chunked_plain_bwd(x, Bm, Cm, dt, A, h_in, dy, dh_out,
         return torch.autograd.grad((y, h), ins, (dy, dh_out))
 
 
+def ssd_chunked_bwd_plain(x, Bm, Cm, dt, A, h_in, dy, dh_out,
+                          chunk: int = KERNEL_CHUNK):
+    """The scan's gradient as ``ssd_scan_bwd`` computes it: B5's chunks run
+    in reverse, as einsums over ``chunk``-token chunks whose boundaries
+    depend on the token index alone (the last cut at S). Inside a chunk
+    a_r = A·dt_r, Lc its inclusive cumsum, and every weight is the exp of a
+    sum of a over a range, exp(Σ_{(s,t]} a) ≤ 1:
+
+    0. the chunks' starting states h_c (B5's phases 1–2);
+    1. D_c = (exp(Lc) ∘ dy)ᵀ · C, the gradient on h_c of the chunk's own
+       y_state term;
+    2. the reverse pass: G (the gradient at the chunk's end state) starts at
+       dh_out, G_{c−1} = exp(Lc_end)·G_c + D_c, dh_in = the last G;
+    3. per chunk, from G_c and h_c: dx, dB, dC (summed over heads), and da_r
+       = ∂L/∂a_r as a sum over the rectangle s < r ≤ t of the pairs (s, t)
+       whose weight holds a_r — intra (s, t), y_state (−1, t), contribution
+       (s, end), decay (−1, end) — with no difference of two cumsums; ddt =
+       x·(dx/dt) + A·da, dA = Σ dt·da.
+
+    Returns (dx, dBm, dCm in x's dtype; ddt, dA, dh_in float32). No path
+    runs it: the CPU tests hold it to the reference's ``jax.vjp``."""
+    Bsz, S, nh, hd = x.shape
+    f = torch.float32
+    x32, B32, C32 = x.to(f), Bm.to(f), Cm.to(f)
+    dt32, A32, dy32 = dt.to(f), A.to(f), dy.to(f)
+    spans = [(c0, min(S, c0 + chunk)) for c0 in range(0, S, chunk)]
+    Lcs, starts, h = [], [], h_in.to(f)
+    for c0, c1 in spans:                                     # phase 0
+        Lc = torch.cumsum(A32 * dt32[:, c0:c1], dim=1)       # (B, L, nh)
+        w = torch.exp(Lc[:, -1:] - Lc) * dt32[:, c0:c1]
+        starts.append(h)
+        h = torch.exp(Lc[:, -1])[..., None, None] * h + torch.einsum(
+            "blhd,blh,bln->bhdn", x32[:, c0:c1], w, B32[:, c0:c1])
+        Lcs.append(Lc)
+    D = [torch.einsum("bth,bthd,btn->bhdn", torch.exp(Lc),     # phase 1
+                      dy32[:, c0:c1], C32[:, c0:c1])
+         for (c0, c1), Lc in zip(spans, Lcs)]
+    Gs, G = [None] * len(spans), dh_out.to(f)
+    for c in reversed(range(len(spans))):                    # phase 2
+        Gs[c] = G
+        G = torch.exp(Lcs[c][:, -1])[..., None, None] * G + D[c]
+    dx, dB, dC = torch.zeros_like(x32), torch.zeros_like(B32), \
+        torch.zeros_like(C32)
+    ddt, dA = torch.zeros_like(dt32), torch.zeros_like(A32)
+    for (c0, c1), Lc, Gc, hc in zip(spans, Lcs, Gs, starts):  # phase 3
+        L = c1 - c0
+        xc, Bc, Cc = x32[:, c0:c1], B32[:, c0:c1], C32[:, c0:c1]
+        dtc, dyc = dt32[:, c0:c1], dy32[:, c0:c1]
+        causal = torch.ones((L, L), dtype=torch.bool).tril()[None, :, :, None]
+        E = torch.exp(torch.where(causal, Lc[:, :, None] - Lc[:, None],
+                                  torch.full((), float("-inf"))))
+        CB = torch.einsum("btn,bsn->bts", Cc, Bc)[..., None]  # (B, t, s, 1)
+        ee = torch.exp(Lc[:, -1:] - Lc)                        # (B, s, nh)
+        el = torch.exp(Lc)                                     # (B, t, nh)
+        GB = ee[..., None] * torch.einsum("bhdn,bsn->bshd", Gc, Bc)
+        U = GB + torch.einsum("btsh,bthd->bshd", CB * E, dyc)  # dx / dt
+        P = torch.einsum("bthd,bshd->btsh", dyc, xc) * E * dtc[:, None]
+        Ys = el[..., None] * torch.einsum("bthd,bhdn->bthn", dyc, hc)
+        dx[:, c0:c1] = dtc[..., None] * U
+        dB[:, c0:c1] = torch.einsum("bsh,bshd,bhdn->bsn", dtc * ee, xc,
+                                    Gc) + torch.einsum("btsh,btn->bsn", P,
+                                                       Cc)
+        dC[:, c0:c1] = Ys.sum(2) + torch.einsum("btsh,bsn->btn", P, Bc)
+        # da_r: the intra pairs s < r ≤ t as a column suffix over t, then a
+        # row sum over s < r; y_state pairs t ≥ r; contributions s < r;
+        # the decay pair, every r
+        v = P * CB
+        suffix = torch.flip(torch.cumsum(torch.flip(v, [1]), 1), [1])
+        strict = torch.ones((L, L), dtype=torch.bool).tril(-1)[None, :, :,
+                                                               None]
+        da = (suffix * strict).sum(2)
+        ystate = torch.einsum("bthn,btn->bth", Ys, Cc)
+        da = da + torch.flip(torch.cumsum(torch.flip(ystate, [1]), 1), [1])
+        contrib = dtc * torch.einsum("bshd,bshd->bsh", xc, GB)
+        da = da + F.pad(torch.cumsum(contrib, 1), (0, 0, 1, 0))[:, :L]
+        da = da + (torch.exp(Lc[:, -1]) * torch.einsum(
+            "bhdn,bhdn->bh", Gc, hc))[:, None]
+        ddt[:, c0:c1] = torch.einsum("bshd,bshd->bsh", xc, U) + A32 * da
+        dA = dA + (dtc * da).sum((0, 1))
+    return (dx.to(x.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype), ddt, dA, G)
+
+
 def ssd_reverse_recurrence_bwd(x, Bm, Cm, dt, A, h_in, dy, dh_out,
                                interval: int = 8):
-    """The scan's gradient by ``ssd_scan_bwd``'s algorithm, in float32:
+    """The scan's gradient by the token-by-token reverse recurrence, in
+    float32 (the ground truth of the chunked forms; no path runs it):
 
     - forward over the sequence from h_in, keeping the state at the start
-      of every group of ``interval`` steps (the kernel's checkpoints);
+      of every group of ``interval`` steps;
     - the groups from the last: re-run the group from its checkpoint
       keeping every h_t, then walk it backwards carrying g = ∂L/∂h_t,
       g_t = dy_t ⊗ C_t + a_{t+1}·g_{t+1} (g starts at dh_out), with

@@ -75,10 +75,13 @@ def config_of(args: argparse.Namespace):
     return dataclasses.replace(cfg, **over) if over else cfg
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace, after_steps=None) -> dict:
     """Train as the flags say; print the reference's step lines and return
     a summary: losses per step, s/step (the steps after the first),
-    tokens/s, peak device memory (the card only) and the device."""
+    tokens/s, peak device memory (the card only) and the device.
+    ``after_steps``, if given, is called once the timed steps are done with
+    a function that runs one more step on the next batch (a profiler's
+    window); that step is in no number of the summary."""
     dev = resolve_device(args.device)
     cfg = config_of(args)
     model = build_model(cfg, dev)
@@ -113,6 +116,16 @@ def run(args: argparse.Namespace) -> dict:
             print(f"step {m['step']:5d}  loss {float(m['loss']):.4f}  "
                   f"ce {float(m['ce']):.4f}  aux {float(m['aux']):.4f}  "
                   f"({walls[-1] / (i + 1):.2f}s/step)", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    if after_steps is not None:
+        def one_step() -> None:
+            nonlocal state
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in next(it).items()}
+            state, _ = step(state, batch)
+            if cuda:
+                torch.cuda.synchronize(dev)
+        after_steps(one_step)
     if args.ckpt:
         checkpoint.save(state.params, args.ckpt)
         print("saved", args.ckpt, flush=True)
@@ -127,8 +140,7 @@ def run(args: argparse.Namespace) -> dict:
             "first_step_s": walls[0] if walls else None,
             "s_per_step": steady,
             "tokens_per_s": args.batch * args.seq / steady,
-            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 2**30
-                            if cuda else None),
+            "peak_mem_gb": peak,
             "device": str(dev)}
 
 

@@ -46,7 +46,8 @@ from repro.training import (AdamWConfig as JAdamW, DataConfig as JData,
 from repro.training.train_step import TrainState as JState
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.base import ModelConfig as TCfg
-from repro_torch.kernels.ssd import (ssd_chunked_kernel,
+from repro_torch.kernels.ssd import (ssd_chunked_bwd_plain,
+                                     ssd_chunked_kernel,
                                      ssd_chunked_plain_bwd,
                                      ssd_reverse_recurrence_bwd)
 from repro_torch.launch import train as t_launch
@@ -377,9 +378,9 @@ def _scan_inputs(B_, S_, nh, hd, N, seed, dt_scale=1.0):
                                    (2, 16, 4, 16, 32, 16)])
 def test_ssd_backward_plain_forms_match_reference_vjp(shape):
     """The plain backward (autograd of the chunked plain scan, any chunk)
-    and the reverse-recurrence form of ``ssd_scan_bwd``'s algorithm (its
-    checkpoints at 8 and 5 steps) against ``jax.vjp`` of the reference's
-    ``ssd_chunked`` on the same (dy, dh_out), nonzero h_in."""
+    and the token-by-token reverse recurrence (its checkpoints at 8 and 5
+    steps) against ``jax.vjp`` of the reference's ``ssd_chunked`` on the
+    same (dy, dh_out), nonzero h_in."""
     B_, S_, nh, hd, N, chunk = shape
     ins, dy, dh = _scan_inputs(B_, S_, nh, hd, N, seed=sum(shape),
                                dt_scale=0.3)
@@ -421,6 +422,59 @@ def test_plain_scan_gradient_stays_finite_where_reference_overflows():
     y, h = ssd_chunked_kernel(*t_ins, 32)
     jy, jh = jssm.ssd_chunked(*map(jnp.asarray, ins), 32)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("S_", [1, 63, 64, 65, 130])
+def test_ssd_chunked_bwd_plain_matches_reference_vjp(S_):
+    """``ssd_scan_bwd``'s algorithm as einsums (B5's 64-token chunks in
+    reverse, da as a sum over a rectangle) against ``jax.vjp`` of the
+    reference's ``ssd_chunked`` at chunk 64, nonzero h_in and dh_out. The
+    reference takes whole chunks: its inputs are padded with zero rows
+    (dt 0: identity steps, dy 0), and its gradients cut at S."""
+    ins, dy, dh = _scan_inputs(2, S_, 2, 16, 16, seed=S_, dt_scale=0.3)
+    pad = (-S_) % 64
+
+    def padded(a):
+        return np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+    j_ins = [padded(a) for a in ins[:4]] + list(ins[4:])
+    _, vjp = jax.vjp(lambda *a: jssm.ssd_chunked(*a, 64),
+                     *map(jnp.asarray, j_ins))
+    want = vjp((jnp.asarray(padded(dy)), jnp.asarray(dh)))
+    got = ssd_chunked_bwd_plain(*map(torch.from_numpy, ins),
+                                torch.from_numpy(dy), torch.from_numpy(dh))
+    for name, g, w_, a in zip(("dx", "dBm", "dCm", "ddt", "dA", "dh_in"),
+                              got, want, ins):
+        w_ = np.asarray(w_)
+        if w_.shape != a.shape:
+            w_ = w_[:, :S_]
+        assert g.shape == a.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), w_, **SCAN_TOL, err_msg=name)
+
+
+def test_ssd_chunked_bwd_plain_empty_sequence():
+    """S = 0: dh_in = dh_out, dA zero, the per-token gradients empty."""
+    ins, dy, dh = _scan_inputs(2, 0, 2, 16, 16, seed=0)
+    got = ssd_chunked_bwd_plain(*map(torch.from_numpy, ins),
+                                torch.from_numpy(dy), torch.from_numpy(dh))
+    for g, a in zip(got[:4], ins):
+        assert tuple(g.shape) == a.shape and g.numel() == 0
+    assert torch.equal(got[4], torch.zeros(2))
+    assert torch.equal(got[5], torch.from_numpy(dh))
+
+
+def test_ssd_chunked_bwd_plain_stays_finite_where_reference_overflows():
+    """The overflow case of the plain scan's test (Σ A·dt inside a chunk
+    far above 88): every gradient of the chunked reverse form is finite and
+    equals the token-by-token recurrence's."""
+    ins, dy, dh = _scan_inputs(1, 32, 2, 16, 16, seed=3, dt_scale=8.0)
+    t_ins = [torch.from_numpy(a) for a in ins]
+    got = ssd_chunked_bwd_plain(*t_ins, torch.from_numpy(dy),
+                                torch.from_numpy(dh))
+    ref = ssd_reverse_recurrence_bwd(*t_ins, torch.from_numpy(dy),
+                                     torch.from_numpy(dh))
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), r.numpy(), **SCAN_TOL)
 
 
 # ------------------------------------------------------------ train step
@@ -545,6 +599,34 @@ def test_launch_train_cpu_saves_a_checkpoint(tmp_path, capsys):
     assert all(torch.isfinite(t).all() for t in tree_leaves(got))
 
 
+def test_launch_train_after_steps_runs_one_more_step():
+    """``launch.train.run(after_steps=)`` hands the caller one more step
+    after the timed ones (the smoke's profiler window): it trains on the
+    next batch and leaves the summary's losses and times alone."""
+    seen = []
+
+    def after(one_step):
+        seen.append(len(seen))
+        one_step()
+    argv = ["--arch", "mamba2-130m", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--device", "cpu"]
+    s = t_launch.run(t_launch.parse_args(argv), after_steps=after)
+    assert seen == [0] and len(s["losses"]) == 2
+
+
+@pytest.mark.parametrize("shape,hg", [
+    ((4, 1, 64), 2),      # zamba2 verify / prefill: 128 blocks of 2 heads
+    ((4, 1, 24), 1),      # mamba2-130m verify: 96 blocks
+    ((8, 16, 24), 8),     # mamba2-130m training: 384 blocks of 8 heads
+    ((4, 16, 64), 8),     # zamba2-1.2b training: 512 blocks
+    ((1, 0, 3), 1)])
+def test_bwd_heads_per_block_fills_the_card(shape, hg):
+    """``ssd_scan_bwd``'s heads per block: one wave of at least 128 blocks
+    where a group of heads allows it, one chunk included."""
+    from repro_torch.kernels.ssd.ssd import bwd_heads_per_block
+    assert bwd_heads_per_block(*shape) == hg
+
+
 def test_train_draft_example_train_lm_on_cpu():
     """The torch ``train_draft`` example's ``train_lm`` for 2 steps on the
     CPU: detached parameters and two finite losses; its draft has 64-wide
@@ -613,3 +695,13 @@ def test_ssd_wrappers_check_their_inputs():
             1, 2), *t[2:])
     with pytest.raises(ValueError, match="launches on cuda"):
         ssd_bwd_call(*t, **g)
+
+
+def test_ssd_bwd_states_refuses_cpu_tensors():
+    """The backward's state recompute, which passes its tensors' addresses
+    to a launch, refuses CPU tensors as the wrappers do."""
+    from repro_torch.kernels.ssd import ssd_bwd_states
+    (x, Bm, Cm, dt, A, h0), _, _ = _scan_inputs(1, 130, 2, 16, 16, seed=0)
+    t = [torch.from_numpy(a) for a in (x, Bm, Cm, dt, A, h0)]
+    with pytest.raises(ValueError, match="launches on cuda"):
+        ssd_bwd_states(*t)
