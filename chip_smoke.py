@@ -199,7 +199,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               sizes (the trained draft's acceptance above the untrained
               one's); WC-DNN on DSD-Sim labels (``default_grid(small=
               True)``) trained on the card into a temporary path,
-              ``numpy_predictor`` == ``forward`` within 1e-5.
+              ``numpy_predictor`` == ``forward`` within 1e-5;
+15. dryrun  — ``repro_torch.launch.dryrun`` on the meta device over every
+              assigned arch × the 4 shapes × the single- and multi-pod
+              meshes through its CLI (four children side by side, no
+              card visible to them), one line a row, every row ok; B1
+              held to its plain and split plain at the qwen2.5-3b steps'
+              shapes below (not counted); then three steps that
+              fit one H100 run for real at the ``host`` mesh, each beside
+              its meta estimate (``torch.cuda.max_memory_allocated`` from
+              an empty allocator, within ±15 % of the estimate) and its
+              meta FLOPs beside the analytic model FLOPs: mamba2-130m's
+              train step at B 8 × S 1024 (B5 and ``ssd_scan_bwd``),
+              qwen2.5-3b's chunked prefill of 8192 tokens (B1, 1024-token
+              windows) and its ``decode_step`` at decode_32k's 32768 slots
+              with the batch cut to 16 (B1), with exact launch counts;
+16. examples — ``examples/quickstart_torch.py``,
+              ``edge_cloud_serving_torch.py`` and ``capture_traces_torch.py``
+              as child processes on the card, side by side, at shrunk
+              flags: each exits 0, the edge example's fused verify ran its
+              kernels and equals the reference rule.
 The decode rounds of every chunk run under
 ``torch.cuda.set_sync_debug_mode("error")`` (all but the one call per
 session step that captures it: capture synchronizes the device); a
@@ -226,7 +245,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "exact", "capture", "distributed",
           "serve", "exact_ssm", "serve_ssm", "pipeline", "topology",
-          "families", "fleet", "train")
+          "families", "fleet", "train", "dryrun", "examples")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 GAMMA_MAX = 8
@@ -387,7 +406,8 @@ def phase_device(torch):
 
 def phase_build(kernels):
     t0 = time.perf_counter()
-    lib = kernels.library()
+    # builds and loads the library, launches nothing: not a kernel wrapper
+    lib = kernels.library()  # noqa: DSD004
     info = {"phase": "build", "seconds": time.perf_counter() - t0,
             "library": str(kernels.BUILD_LOG.get("path")),
             "cached": kernels.BUILD_LOG.get("cached")}
@@ -1200,7 +1220,8 @@ def time_tree_kernels(torch, gen, dev, geoms) -> dict:
         "bound_by": "bytes"})
     fused["replayed_launches_checked"] = 250
     fused["verdict"] = [x.tolist() for x in want]
-    lib = kernels.library()
+    # times the empty kernel, the launch floor: a probe, not a wrapper
+    lib = kernels.library()  # noqa: DSD004
     empty = lambda: lib.empty_kernel_launch(
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch("empty_kernel", empty())
@@ -3750,8 +3771,9 @@ def moe_serve(torch, np, kernels, totals, dev) -> None:
     lp = {k: v[0] for k, v in eng.target_params["layers"]["moe"].items()}
     block_ms = cuda_ms(torch, lambda: moe.moe_block(x, lp, t_cfg))
     emit({"phase": "families", "check": "moe serve", "dtype": "bfloat16",
-          "target": f"{t_cfg.name} (experts 128 -> 8, layers 35 -> 12, "
-          "widths as published)", "draft": f"{d_cfg.name} (as published)",
+          "target": f"{t_cfg.name} (experts 128 -> {t_cfg.n_experts}, "
+          f"layers 35 -> {t_cfg.n_layers}, widths as published)",
+          "draft": f"{d_cfg.name} (as published)",
           "card": smi_line(), "setup_seconds": setup, **rows,
           "eager_rounds": R,
           "dropped_assignments_per_round": float(rec.dropped) / max(1, R),
@@ -4720,6 +4742,31 @@ PARITY_GRAD_TOL = 1e-3
 PARITY_LOSS_RTOL = 1e-4
 PARITY_UPDATE_RTOL = 1e-2
 WCDNN_PREDICT_TOL = 1e-5
+# the dryrun phase's real steps on the card (arch, InputShape fields): they
+# fit one H100 at the host mesh; the meta estimate of each within
+# DRYRUN_TOL of the measured peak
+DRYRUN_CARD = (("mamba2-130m", ("train_b8_s1024", 1024, 8, "train")),
+               ("qwen2.5-3b", ("prefill_8k", 8192, 1, "prefill")),
+               ("qwen2.5-3b", ("decode_32k_b16", 32768, 16, "decode")))
+DRYRUN_TOL = 0.15
+# the meta rows run as four ``python -m repro_torch.launch.dryrun``
+# children side by side, the archs grouped so that the groups take about
+# as long (zamba2's hybrid and whisper's encoder are traced at three
+# depths each)
+DRYRUN_GROUPS = (("zamba2-1.2b",),
+                 ("whisper-tiny", "mamba2-130m", "qwen2.5-3b"),
+                 ("arctic-480b", "deepseek-7b", "internvl2-76b"),
+                 ("llama4-maverick-400b-a17b", "qwen3-14b",
+                  "command-r-plus-104b"))
+DRYRUN_KERNELS = ("decode_attn", "ssd_scan", "ssd_scan_bwd")
+# the examples phase: (script, its shrinking flags, text its output holds)
+EXAMPLES = (("quickstart_torch.py", ["--requests", "4", "--max-new", "16",
+                                     "--sim-requests", "40"], "awc"),
+            ("edge_cloud_serving_torch.py", ["--requests", "4",
+                                             "--max-new", "8"],
+             "(kernel on cuda:0) == reference rule: True"),
+            ("capture_traces_torch.py", ["--requests", "4", "--max-new",
+                                         "16"], "replayed through DSD-Sim"))
 
 
 def ssd_bwd_bound(B, S, nh, hd, N, esize):
@@ -4763,7 +4810,8 @@ def ssd_bwd_config(torch, B, S, nh, hd, N, dtype) -> tuple:
     per block after the kernel's shared-memory clamp, one chunk or more)."""
     from repro_torch.kernels import dtype_code, library
     from repro_torch.kernels.ssd.ssd import bwd_heads_per_block
-    lib = library()
+    # reads the kernel's configuration entries, launches nothing
+    lib = library()  # noqa: DSD004
     nch = -(-S // lib.ssd_scan_chunk())
     hg = lib.ssd_scan_bwd_heads(hd, N, dtype_code(dtype),
                                 bwd_heads_per_block(B, nch, nh))
@@ -5254,6 +5302,213 @@ def phase_train(torch, kernels) -> tuple:
     return totals, err, times
 
 
+def meta_rows() -> tuple:
+    """``python -m repro_torch.launch.dryrun`` over DRYRUN_GROUPS, one child
+    a group, side by side: (the rows, their seconds)."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    # the meta rows need no card, so none is visible to them (a child's
+    # first train row, 9–12 s on the H100 host either way, is mostly its
+    # first import of torch._dynamo, under the live-bytes mode)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rows{i}.jsonl"
+                for i in range(len(DRYRUN_GROUPS))]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ",".join(g), "--shape", "all", "--mesh", "single,multi",
+             "--out", str(out)], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for g, out in zip(DRYRUN_GROUPS, outs)]
+        try:
+            for g, p, out in zip(DRYRUN_GROUPS, procs, outs):
+                text, _ = p.communicate(timeout=600)
+                print(text, end="", flush=True)
+                if p.returncode != 0:
+                    fail(f"dryrun CLI over {g} exited {p.returncode}")
+                rows += [json.loads(l) for l in out.read_text().splitlines()]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return rows, time.perf_counter() - t0
+
+
+def dryrun_attention(torch, card) -> dict:
+    """B1 at the shapes the dryrun phase's qwen2.5-3b steps give it (Hkv 2,
+    G 8, hd 128, bf16 — the cache's dtype): a prefill window of 1024
+    queries over the 8320-slot cache, first (7 of 8 windows' keys not
+    written yet, pos −1) and last, and the decode step over 16 × 32768
+    slots with every slot written and with only its own (as the step
+    after a fresh cache has it). Each against the single-pass plain
+    version and the split plain of the kernel's own plan, within the
+    phase_kernels bf16 tolerance. Not counted as main-path launches (the
+    counts are reset after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import (
+        decode_attn_call, decode_attention_grouped, decode_attention_split,
+        split_plan)
+    from repro_torch.launch.dryrun import PREFILL_CHUNK
+    cfg = get_config("qwen2.5-3b")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // Hkv
+    dtype = torch.bfloat16
+    tol = dict(atol=2e-2, rtol=2e-2)
+    prefill = DRYRUN_CARD[1][1][1]
+    decode = DRYRUN_CARD[2][1]
+    chunk = PREFILL_CHUNK
+    cases = []
+    for w in (0, prefill // chunk - 1):     # (B, T, S, written, q_pos 0)
+        cases.append((f"prefill window {w}", 1, chunk, prefill + 128,
+                      (w + 1) * chunk, w * chunk))
+    for written in (decode[1], 1):
+        cases.append((f"decode {written} written", decode[2], 1, decode[1],
+                      written, decode[1] - 1))
+    err, rows = 0.0, []
+    for label, B, T, S, written, q0 in cases:
+        q = torch.randn((B, T, Hkv, G, hd), generator=gen,
+                        device=dev).to(dtype)
+        k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        ar = torch.arange(S, device=dev, dtype=torch.int32)
+        lo = S - written if written < S and T == 1 else 0
+        pm = torch.where((ar >= lo) & (ar < lo + written), ar,
+                         torch.full_like(ar, -1)).expand(B, S).contiguous()
+        qp = (q0 + torch.arange(T, device=dev, dtype=torch.int32)
+              ).expand(B, T).contiguous()
+        split, n_split = split_plan(S, hd, dtype, Hkv)
+        out = decode_attn_call(q, k, v, pm, qp)
+        refs = (decode_attention_grouped(q, k, v, pm, qp),
+                decode_attention_split(q, k, v, pm, qp, split))
+        torch.cuda.synchronize()
+        for ref in refs:
+            try:
+                torch.testing.assert_close(out.float(), ref.float(), **tol)
+            except AssertionError as e:
+                fail(f"dryrun B1 {label} (B {B}, T {T}, S {S}) vs plain: {e}")
+        e = float((out.float() - refs[0].float()).abs().max())
+        err = max(err, e)
+        rows.append({"case": label, "B": B, "T": T, "S": S,
+                     "splits": n_split, "max_abs_err": e})
+        del q, k, v, out, refs
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun", "card": card,
+          "check": "B1 at the real steps' shapes == plain and split plain",
+          "Hkv": Hkv, "G": G, "hd": hd, "dtype": "bfloat16",
+          "tolerance": tol, "cases": rows})
+    return err
+
+
+def phase_dryrun(torch, kernels) -> dict:
+    """The meta dry-run over ASSIGNED × SHAPES × (single, multi) through its
+    CLI, then the DRYRUN_CARD steps for real (module docstring, phase 15).
+    Returns the real steps' launch counts (the main path)."""
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, InputShape
+    card = smi_line()
+    if sorted(a for g in DRYRUN_GROUPS for a in g) != sorted(ASSIGNED):
+        fail(f"DRYRUN_GROUPS must hold every assigned arch once: {ASSIGNED}")
+    rows, meta_s = meta_rows()
+    if len(rows) != len(ASSIGNED) * len(SHAPES) * 2 or not all(
+            r["ok"] and r["collectives"] is None for r in rows):
+        fail(f"dryrun: {len(rows)} rows, not all ok")
+    emit({"phase": "dryrun", "meta_rows": len(rows),
+          "rows_ok": sum(r["ok"] for r in rows),
+          "rows_fit_80gib": sum(r["fits"] for r in rows),
+          "not_fit": [[r["arch"], r["shape"], r["mesh"],
+                       r["memory"]["peak_estimate_bytes"] / 2**30]
+                      for r in rows if not r["fits"]],
+          "collectives": "null in every row: " + dryrun.COLLECTIVES_NOTE,
+          "meta_seconds": meta_s})
+    dryrun_attention(torch, card)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    checks = []
+    for arch, fields in DRYRUN_CARD:
+        shape = InputShape(*fields)
+        row = dryrun.run_one(arch, shape, "host", device="cuda")
+        if not row["ok"]:
+            fail(f"dryrun on the card, {arch} {shape.name}: {row['error']}")
+        m = row["memory"]
+        check = {"arch": arch, "shape": shape.name,
+                 "estimate_bytes": m["peak_estimate_bytes"],
+                 "measured_peak_bytes": row["measured_peak_bytes"],
+                 "ratio": row["estimate_ratio"],
+                 "estimate_parts": {k: m[k] for k in (
+                     "argument_bytes", "output_bytes", "gradient_bytes",
+                     "activation_bytes")},
+                 "meta_flops": row["meta_flops"],
+                 "model_flops": row["model_flops"],
+                 "meta_over_model_flops": row["meta_flops"]
+                 / row["model_flops"],
+                 "trace_s": row["trace_s"], "run_s": row["run_s"],
+                 "finite": row["finite"]}
+        emit({"phase": "dryrun", "card": card, **check})
+        if not row["finite"]:
+            fail(f"dryrun on the card, {arch} {shape.name}: output not "
+                 "finite")
+        if not abs(row["estimate_ratio"] - 1.0) <= DRYRUN_TOL:
+            fail(f"dryrun on the card, {arch} {shape.name}: estimate "
+                 f"{m['peak_estimate_bytes']} B against a measured peak of "
+                 f"{row['measured_peak_bytes']} B (ratio "
+                 f"{row['estimate_ratio']:.3f}, limit ±{DRYRUN_TOL})")
+        checks.append(check)
+    launches = dict(kernels.LAUNCHES)
+    # mamba2-130m: 24 layers, B5 twice a layer under remat and its
+    # gradient once; qwen2.5-3b: 36 layers, 8 prefill windows and 1 decode
+    mamba, qwen = get_config("mamba2-130m"), get_config("qwen2.5-3b")
+    want = {"ssd_scan": 2 * mamba.n_layers, "ssd_scan_bwd": mamba.n_layers,
+            "decode_attn": (8 + 1) * qwen.n_layers}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"dryrun card steps launched {got}, expected {want}")
+    emit({"phase": "dryrun", "card": card, "launches": got,
+          "card_seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_examples() -> dict:
+    """The three torch examples as child processes on the card, side by
+    side (module docstring, phase 16)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = []
+    for script, flags, _ in EXAMPLES:
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / script), *flags],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    runs = []
+    try:
+        for (script, flags, expect), p in zip(EXAMPLES, procs):
+            out, _ = p.communicate(timeout=300)
+            runs.append({"script": script, "flags": flags,
+                         "rc": p.returncode,
+                         "seconds_since_start": time.perf_counter() - t0,
+                         "tail": out.strip().splitlines()[-4:]})
+            if p.returncode != 0 or expect not in out:
+                print(out, flush=True)
+                fail(f"examples: {script} exited {p.returncode} (or "
+                     f"printed no {expect!r})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    emit({"phase": "examples", "runs": runs,
+          "seconds": time.perf_counter() - t0})
+    return {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5326,6 +5581,16 @@ def main(argv=None) -> int:
         _add(totals, train_totals)
         err.update(train_err)
         seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if "dryrun" in phases:
+        dry_totals = phase_dryrun(torch, kernels)
+        idle += [k for k in DRYRUN_KERNELS if not dry_totals.get(k)]
+        _add(totals, dry_totals)
+        seconds["dryrun"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if "examples" in phases:
+        phase_examples()
+        seconds["examples"] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
     csrc = "src/repro_torch/csrc/"
     replaces = {

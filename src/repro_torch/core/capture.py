@@ -44,6 +44,15 @@ import torch
 
 from ..kernels import LAUNCHES
 
+# graphs captured by every CapturedStep of this process (the re-capture
+# sentry's global count, ``analysis/sanitize.py``)
+_GRAPHS_CAPTURED = 0
+
+
+def graphs_captured() -> int:
+    """CUDA graphs captured in this process so far."""
+    return _GRAPHS_CAPTURED
+
 
 @dataclass
 class GraphCounts:
@@ -124,6 +133,8 @@ class CapturedStep:
             LAUNCHES[k] -= n
         self.graph = graph
         self.counts.captured += 1
+        global _GRAPHS_CAPTURED
+        _GRAPHS_CAPTURED += 1
 
     def _replay(self) -> None:
         self.graph.replay()

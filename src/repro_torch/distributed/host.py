@@ -39,9 +39,9 @@ a recurrent draft re-advanced). Every round program is a captured step of
 the host's session on the card.
 
 Steady-state waves (after the first, which builds and captures every step)
-run under :func:`capture_guard`: a host whose second or later wave
-captures a graph or builds a new step raises and exits non-zero instead of
-silently timing captures. The first wave must admit at least two requests
+run under :func:`~repro_torch.analysis.sanitize.capture_guard`: a host
+whose second or later wave captures a graph or builds a new step raises
+and exits non-zero instead of silently timing captures. The first wave must admit at least two requests
 and run at least two rounds, so that every step is captured in it.
 
 The parent side (:func:`spawn_pair` → :class:`PairHostHandle`) is what
@@ -70,6 +70,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..analysis.sanitize import capture_guard
 from ..kernels import LAUNCHES
 from .socket_transport import (FRAME_CONTROL, SocketTransport, recv_frame,
                                send_frame)
@@ -162,20 +163,6 @@ def _parse_kv(entries) -> dict:
             raise SystemExit(f"expected NAME=PATH, got {e!r}")
         out[k] = v
     return out
-
-
-@contextlib.contextmanager
-def capture_guard(engine, what: str):
-    """The torch form of the reference's ``compile_guard``: raise when the
-    block captured a CUDA graph or built a new step (a steady-state wave
-    must only replay)."""
-    before = (engine.graphs.captured, engine.step_programs())
-    yield
-    after = (engine.graphs.captured, engine.step_programs())
-    if after != before:
-        raise RuntimeError(
-            f"{what}: captured {after[0] - before[0]} graph(s) and built "
-            f"{after[1] - before[1]} step(s) after the first wave")
 
 
 class _HostContext:

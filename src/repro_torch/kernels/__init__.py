@@ -27,7 +27,11 @@ that waited on the lock finds the library built and loads it.
 The device rule: a kernel wrapper given CPU tensors runs the kernel's plain
 PyTorch version (that is what the CPU tests exercise); given CUDA tensors it
 launches the kernel or raises. There is no fallback from the card to the
-plain version. Every launch adds one to the wrapper's entry in
+plain version. Meta tensors (shape and dtype, no storage: the dry-run,
+``launch/dryrun.py``) are a third, named case: the wrapper runs the plain
+version's ops on them, which computes nothing and gives the output's shape
+and the FLOPs a counter sees; no launch is counted. Any other device
+raises. Every launch adds one to the wrapper's entry in
 :data:`LAUNCHES`, so a run can show that its path went through the kernels.
 """
 

@@ -111,8 +111,12 @@ def decode_attn_call(q: torch.Tensor,        # (B, T, Hkv, G, hd)
     if q.device.type == "cpu":
         return decode_attention_grouped(q, k, v, pos_map, q_pos, window,
                                         win_mask, win_base)
+    if q.device.type == "meta":     # the dry-run: shapes and FLOPs only
+        return decode_attention_grouped(q, k, v, pos_map, q_pos, window,
+                                        win_mask, win_base)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attn runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"decode_attn runs on cuda or cpu (meta: shapes "
+                         f"only), not {q.device}")
     B, T, Hkv, G, hd = q.shape
     S = k.shape[1]
     tensors = {"k": k, "v": v, "pos_map": pos_map}

@@ -108,9 +108,13 @@ def paged_decode_attention(q: torch.Tensor,            # (B, T, Hkv, G, hd)
         return paged_decode_attention_plain(q, k_pool, v_pool, k_scale,
                                             v_scale, pos_map, block_table,
                                             q_pos, length, window)
+    if q.device.type == "meta":     # the dry-run: shapes and FLOPs only
+        return paged_decode_attention_plain(q, k_pool, v_pool, k_scale,
+                                            v_scale, pos_map, block_table,
+                                            q_pos, length, window)
     if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attn runs on cuda or cpu, not "
-                         f"{q.device}")
+        raise ValueError(f"paged_decode_attn runs on cuda or cpu (meta: "
+                         f"shapes only), not {q.device}")
     B, T, Hkv, G, hd = q.shape
     NB, bs = k_pool.shape[0], k_pool.shape[1]
     n_log = block_table.shape[1]

@@ -68,12 +68,15 @@ def decode_attention_grouped(qg: torch.Tensor,   # (B, T, Hkv, G, hd)
     rule of slots ``win_base[b] + j``, 0 ≤ j < Wn, by ``win_mask[t, j]``,
     as the reference's ``_attend_cached(win_mask=...)`` does."""
     hd = qg.shape[-1]
-    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(),
-                          k.float()) / math.sqrt(hd)
+    # in place where the op allows: a (B, Hkv, G, T, S) score tensor and
+    # its softmax are the most this holds at once
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float())
+    scores.div_(math.sqrt(hd))
     valid = _validity(pos_map, q_pos, window, win_mask, win_base)
-    scores = scores.masked_fill(~valid, float("-inf"))
+    scores.masked_fill_(~valid, float("-inf"))
     w = torch.softmax(scores, dim=-1)
-    w = torch.nan_to_num(w, nan=0.0)       # rows with no valid slot → 0
+    del scores
+    w.nan_to_num_(nan=0.0)                 # rows with no valid slot → 0
     out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
     return out.to(qg.dtype)
 

@@ -39,14 +39,17 @@ def ssd_chunked_kernel(x, Bm, Cm, dt, A, h_in, chunk: int):
     over ``chunk``-token chunks (autograd differentiates its einsums); CUDA
     tensors launch B5 (its own 64-token chunks: chunking changes only the
     float order) or raise, through :class:`SSDScanFn` when a gradient is
-    being recorded, so the backward launches ``ssd_scan_bwd``."""
+    being recorded, so the backward launches ``ssd_scan_bwd``. Meta tensors
+    (the dry-run) take the CUDA path's structure, each wrapper running its
+    kernel's plain twin for the shapes: a layer keeps what the card's keeps
+    between its forward and backward (the six inputs)."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, Bm, Cm, dt, A, h_in, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunked_kernel runs on cuda or cpu, not "
-                         f"{x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_chunked_kernel runs on cuda or cpu (meta: "
+                         f"shapes only), not {x.device}")
     args = (x, Bm, Cm, dt, A, h_in)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return SSDScanFn.apply(*args)

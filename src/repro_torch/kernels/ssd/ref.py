@@ -4,8 +4,9 @@ reference oracles ``repro/kernels/ssd/ref.py`` and of the chunked jnp path
 
 - :func:`ssd_recurrent_reference` — the literal token-by-token recurrence,
   the ground truth;
-- :func:`ssd_chunked_plain` — the chunked SSD algorithm as einsums, what
-  the CPU path runs and what ``chip_smoke.py`` holds the kernel to;
+- :func:`ssd_chunked_plain` — the chunked SSD algorithm as einsums over
+  every chunk at once, what the CPU path and the meta device's dry-run
+  run and what ``chip_smoke.py`` holds the kernel to;
 - :func:`ssd_state_passing_plain` — the kernel's three-phase decomposition
   (chunk states, a pass over the chunks, outputs) in its chunk of 64
   tokens; the CPU tests hold it to the reference, and no path runs it;
@@ -47,55 +48,71 @@ def ssd_recurrent_reference(x, Bm, Cm, dt, A, h_in):
     return y, h
 
 
-def ssd_chunk_plain(x, Bm, Cm, dt, A, h_in):
-    """One chunk of L tokens (the reference's ``ssd_chunk``): the carried-in
-    state's contribution, the masked (L, L) quadratic form inside the
-    chunk, and the state carried out."""
-    L = x.shape[1]
-    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
-    Lc = torch.cumsum(A[None, None, :] * dt, dim=1)          # (B, L, nh)
-    y_state = torch.einsum("bln,bhdn->blhd", C32, h_in) \
-        * torch.exp(Lc)[..., None]
-    seg = Lc[:, :, None, :] - Lc[:, None, :, :]               # (B, t, s, nh)
-    causal = torch.ones((L, L), dtype=torch.bool,
-                        device=x.device).tril()[None, :, :, None]
-    # masked before the exp, not after: the same values (exp(−inf) = 0),
-    # but the gradient of exp at the masked entries, where seg > 0 can
-    # overflow, is 0·0 instead of 0·inf = NaN (the reference's
-    # where(mask, exp(seg), 0) has that NaN in its gradient)
-    w = torch.exp(torch.where(causal, seg, torch.full_like(seg,
-                                                           float("-inf"))))
-    cb = torch.einsum("btn,bsn->bts", C32, B32)
-    scores = cb[..., None] * w * dt[:, None, :, :]
-    y_intra = torch.einsum("btsh,bshd->bthd", scores, x32)
-    decay_out = torch.exp(Lc[:, -1:, :] - Lc)                 # (B, L, nh)
-    contrib = torch.einsum("blh,bln,blhd->bhdn", decay_out * dt, B32, x32)
-    h_out = torch.exp(Lc[:, -1, :])[..., None, None] * h_in + contrib
-    return y_state + y_intra, h_out
-
-
 def ssd_chunked_plain(x, Bm, Cm, dt, A, h_in, chunk: int):
-    """The chunked scan over ``chunk``-token chunks in order. S is padded
-    to a chunk multiple with zero dt (identity steps: decay exp(0) = 1,
-    contribution 0), as the reference glue pads; the padded y rows are cut.
-    Returns (y (B, S, nh, hd) f32, h_out f32)."""
-    S = x.shape[1]
+    """The chunked scan over ``chunk``-token chunks (the reference's
+    ``ssd_chunked``), every chunk at once: in each chunk the masked (L, L)
+    quadratic form and the chunk's own contribution to the state, then the
+    states entering the chunks as one strictly-lower (nc, nc) decay product
+    over the chunks' total decays, Σ_{j<c} exp(Σ_{j<k<c} D_k)·contrib_j +
+    exp(Σ_{k<c} D_k)·h_in. A few dozen ops whatever S, which the meta
+    device's dry-run needs as much as the CPU. S is padded to a chunk
+    multiple with zero dt (identity steps: decay exp(0) = 1, contribution
+    0), as the reference glue pads; the padded y rows are cut. Returns
+    (y (B, S, nh, hd) f32, h_out f32)."""
+    Bsz, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    f = torch.float32
+    if S == 0:
+        return x.new_zeros(x.shape, dtype=f), h_in.to(f)
     pad = (-S) % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-    h = h_in.float()
-    ys = []
-    for c0 in range(0, S + pad, chunk):
-        sl = slice(c0, c0 + chunk)
-        y, h = ssd_chunk_plain(x[:, sl], Bm[:, sl], Cm[:, sl],
-                               dt[:, sl].float(), A.float(), h)
-        ys.append(y)
-    y = (torch.cat(ys, dim=1)[:, :S] if ys
-         else x.new_zeros(x.shape, dtype=torch.float32))
-    return y, h
+    nc, L = (S + pad) // chunk, chunk
+    xc = x.to(f).reshape(Bsz, nc, L, nh, hd)
+    Bc = Bm.to(f).reshape(Bsz, nc, L, N)
+    Cc = Cm.to(f).reshape(Bsz, nc, L, N)
+    dtc = dt.to(f).reshape(Bsz, nc, L, nh)
+    Lc = torch.cumsum(A.to(f) * dtc, dim=2)                  # (B, nc, L, nh)
+    # masked before the exp, not after: the same values (exp(−inf) = 0),
+    # but the gradient of exp at the masked entries, where the segment sum
+    # is > 0 and can overflow, is 0·0 instead of 0·inf = NaN (the
+    # reference's where(mask, exp(seg), 0) has that NaN in its gradient)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    seg = Lc[:, :, :, None] - Lc[:, :, None]            # (B, nc, t, s, nh)
+    w = torch.exp(torch.where(tri[:, :, None], seg,
+                              torch.full_like(seg, float("-inf"))))
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    scores = cb[..., None] * w * dtc[:, :, None]
+    y_intra = torch.einsum("bctsh,bcshd->bcthd", scores, xc)
+    wout = torch.exp(Lc[:, :, -1:] - Lc) * dtc
+    contrib = torch.einsum("bclh,bcln,bclhd->bchdn", wout, Bc, xc)
+    D = Lc[:, :, -1]                                         # (B, nc, nh)
+    cum = torch.cumsum(D, dim=1)
+    excl = F.pad(cum, (0, 0, 1, 0))[:, :nc]                   # Σ_{k<c} D_k
+    # run[i, j] = Σ_{j<k≤i} D_k, a cumsum over i of D_i masked to i > j:
+    # a sum over its own range, not a difference of two long prefix sums
+    # (in f32 that difference loses the decay's low bits a few thousand
+    # tokens in); the state entering chunk c carries chunk j's
+    # contribution by run[c − 1, j], j < c
+    strict = torch.ones((nc, nc), dtype=torch.bool,
+                        device=x.device).tril(-1)
+    run = torch.cumsum(torch.where(strict[:, :, None], D[:, :, None],
+                                   torch.zeros_like(D[:, :, None])), dim=1)
+    segc = F.pad(run, (0, 0, 0, 0, 1, 0))[:, :nc]            # (B, c, j, nh)
+    wc = torch.exp(torch.where(strict[:, :, None], segc,
+                               torch.full_like(segc, float("-inf"))))
+    h_in = h_in.to(f)
+    starts = torch.einsum("bcjh,bjhdn->bchdn", wc, contrib) \
+        + torch.exp(excl)[..., None, None] * h_in[:, None]
+    y_state = torch.einsum("bctn,bchdn->bcthd", Cc, starts) \
+        * torch.exp(Lc)[..., None]
+    y = (y_intra + y_state).reshape(Bsz, nc * L, nh, hd)[:, :S]
+    h_out = torch.exp(cum[:, -1])[..., None, None] * h_in + torch.einsum(
+        "bjh,bjhdn->bhdn", torch.exp(run[:, -1]), contrib)
+    return y, h_out
 
 
 KERNEL_CHUNK = 64   # the CUDA kernel's chunk (``csrc/ssd_scan.cuh`` kL)
@@ -212,7 +229,8 @@ def ssd_chunked_bwd_plain(x, Bm, Cm, dt, A, h_in, dy, dh_out,
         L = c1 - c0
         xc, Bc, Cc = x32[:, c0:c1], B32[:, c0:c1], C32[:, c0:c1]
         dtc, dyc = dt32[:, c0:c1], dy32[:, c0:c1]
-        causal = torch.ones((L, L), dtype=torch.bool).tril()[None, :, :, None]
+        causal = torch.ones((L, L), dtype=torch.bool,
+                            device=x.device).tril()[None, :, :, None]
         E = torch.exp(torch.where(causal, Lc[:, :, None] - Lc[:, None],
                                   torch.full((), float("-inf"))))
         CB = torch.einsum("btn,bsn->bts", Cc, Bc)[..., None]  # (B, t, s, 1)
@@ -232,8 +250,8 @@ def ssd_chunked_bwd_plain(x, Bm, Cm, dt, A, h_in, dy, dh_out,
         # the decay pair, every r
         v = P * CB
         suffix = torch.flip(torch.cumsum(torch.flip(v, [1]), 1), [1])
-        strict = torch.ones((L, L), dtype=torch.bool).tril(-1)[None, :, :,
-                                                               None]
+        strict = torch.ones((L, L), dtype=torch.bool,
+                            device=x.device).tril(-1)[None, :, :, None]
         da = (suffix * strict).sum(2)
         ystate = torch.einsum("bthn,btn->bth", Ys, Cc)
         da = da + torch.flip(torch.cumsum(torch.flip(ystate, [1]), 1), [1])

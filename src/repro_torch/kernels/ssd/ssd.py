@@ -4,14 +4,20 @@
 its gradient (``csrc/ssd_scan_bwd.cu``, B5's chunks in reverse), which the
 reference has no kernel for.
 
-:func:`ssd_call` and :func:`ssd_bwd_call` take CUDA tensors only and launch
-their kernels; the device rule lives in :func:`.ops.ssd_chunked_kernel`."""
+:func:`ssd_call` and :func:`ssd_bwd_call` launch their kernels on CUDA
+tensors and refuse CPU ones (the CPU's plain scan is chosen above them, in
+:func:`.ops.ssd_chunked_kernel`). Meta tensors (the dry-run) are a named
+case: each runs its kernel's plain version over the kernel's 64-token
+chunks (:func:`.ref.ssd_chunked_plain`, :func:`.ref.ssd_chunked_plain_bwd`,
+what ``chip_smoke.py`` holds the kernels to), which gives the shapes and
+the FLOPs and computes nothing."""
 
 from __future__ import annotations
 
 import torch
 
 from .. import check_launch, count_launch, dtype_code, library, stream_ptr
+from .ref import KERNEL_CHUNK, ssd_chunked_plain, ssd_chunked_plain_bwd
 
 DIMS = (16, 32, 64, 128)        # head dims and state sizes the kernel takes
 MIN_BLOCKS = 128                # blocks a call should fill (132 SMs)
@@ -86,6 +92,8 @@ def ssd_call(x: torch.Tensor,      # (B, S, nh, hd) f32 / bf16
     kernel cuts S into its own 64-token chunks (no padding): one launch for
     S ≤ 64, else the chunk-state, state-passing and output kernels over
     scratch allocated here."""
+    if x.device.type == "meta":     # the dry-run: shapes and FLOPs only
+        return ssd_chunked_plain(x, Bm, Cm, dt, A, h_in, KERNEL_CHUNK)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_call launches on cuda, not {x.device}")
     if x.dim() != 4:
@@ -145,7 +153,10 @@ def ssd_bwd_states(x, Bm, Cm, dt, A, h_in, h_out=None):
         raise ValueError(f"h_out must be float32 {(B, nh, hd, N)}, "
                          "contiguous, 16-byte aligned, on x's device")
     x, Bm, Cm, h_in = map(_aligned, (x, Bm, Cm, h_in))
-    lib = library()
+    # a phase of ssd_scan_bwd's launch, counted there, and reached only from
+    # ssd_bwd_call's CUDA branch (its meta branch takes the plain backward
+    # whole): no launch count or meta branch of its own
+    lib = library()  # noqa: DSD004
     n_chunks = -(-S // lib.ssd_scan_chunk())
     if n_chunks < 2:
         raise ValueError(f"a scan of {S} tokens has one chunk or none: no "
@@ -177,6 +188,9 @@ def ssd_bwd_call(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     forms dstates, passes over the chunks from the last, and takes each
     chunk's gradients on the tensor cores, summing head groups' partials in
     a fixed order; one chunk is one launch. Scratch is allocated here."""
+    if x.device.type == "meta":     # the dry-run: shapes and FLOPs only
+        return ssd_chunked_plain_bwd(x, Bm, Cm, dt, A, h_in, dy, dh_out,
+                                     KERNEL_CHUNK)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_bwd_call launches on cuda, not {x.device}")
     if x.dim() != 4:
@@ -195,6 +209,7 @@ def ssd_bwd_call(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     n_chunks = -(-S // lib.ssd_scan_chunk())
     hg = lib.ssd_scan_bwd_heads(hd, N, code,
                                 bwd_heads_per_block(B, n_chunks, nh))
+    assert nh % hg == 0, (nh, hg)   # the head groups' partial rows
 
     def new(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)

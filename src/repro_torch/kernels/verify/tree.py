@@ -14,7 +14,8 @@ kernels read it packed into (T, ⌈T/32⌉) int32 words, built once per tree
 shape as ``TreeSpec.win_words``; a CUDA call without them raises.
 
 CPU tensors run the plain versions (:mod:`.ref`); CUDA tensors launch the
-kernel or raise."""
+kernel or raise; meta tensors (the dry-run) run the plain versions' ops for
+their shapes."""
 
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ def _same_device(ref: torch.Tensor, **tensors) -> None:
 
 
 def _check_device(name: str, t: torch.Tensor) -> None:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda or cpu (meta: shapes only), "
+                         f"not {t.device}")
 
 
 def _check_entries(name: str, T: int) -> None:
@@ -74,6 +76,8 @@ def tree_argmax(logits: torch.Tensor) -> torch.Tensor:
     _check_device("tree_argmax", logits)
     if logits.device.type == "cpu":
         return tree_argmax_plain(logits)
+    if logits.device.type == "meta":    # the dry-run: shapes only
+        return tree_argmax_plain(logits)
     if logits.dim() != 3 or logits.dtype != torch.float32:
         raise ValueError("logits must be float32 (B, T, V)")
     _same_device(logits, logits=logits)
@@ -101,6 +105,9 @@ def tree_accept(tree_tokens: torch.Tensor,   # (B, T) int32
     B, T = tree_tokens.shape
     _check_entries("tree_accept", T)
     if tree_tokens.device.type == "cpu":
+        return tree_accept_plain(tree_tokens, tgt, parent_entry, tree_pos,
+                                 node_valid, win_mask)
+    if tree_tokens.device.type == "meta":   # the dry-run: shapes only
         return tree_accept_plain(tree_tokens, tgt, parent_entry, tree_pos,
                                  node_valid, win_mask)
     _check_tables("tree_accept", B, T, tree_tokens, parent_entry, tree_pos,
@@ -144,6 +151,10 @@ def tree_verify_fused(tree_tokens: torch.Tensor,   # (B, T) int
     _check_entries("tree_verify", T)
     tree_tokens = tree_tokens.to(torch.int32).contiguous()
     if tree_tokens.device.type == "cpu":
+        return tree_accept_plain(tree_tokens, tree_argmax_plain(p_logits),
+                                 parent_entry, tree_pos, node_valid,
+                                 win_mask)
+    if tree_tokens.device.type == "meta":   # the dry-run: shapes only
         return tree_accept_plain(tree_tokens, tree_argmax_plain(p_logits),
                                  parent_entry, tree_pos, node_valid,
                                  win_mask)

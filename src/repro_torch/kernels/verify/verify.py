@@ -8,7 +8,8 @@
   sequence (the corrected or bonus token).
 
 CPU tensors run the plain versions (:mod:`.ref`); CUDA tensors launch the
-kernel or raise. Both take float32 or bfloat16 probabilities and any V."""
+kernel or raise; meta tensors (the dry-run) run the plain versions' ops for
+their shapes. Both take float32 or bfloat16 probabilities and any V."""
 
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ def _check_probs(p: torch.Tensor, q: torch.Tensor, B: int, gamma: int):
 
 
 def _device(t: torch.Tensor, name: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda or cpu (meta: shapes only), "
+                         f"not {t.device}")
     return t.device.type
 
 
@@ -43,7 +45,10 @@ def gather_reduce(tokens: torch.Tensor,   # (B, Γ) int32
                   q: torch.Tensor):       # (B, Γ, V)
     """Pass A of the sampled verify → (p_at, q_at, mass), each (B, Γ)
     float32."""
-    if _device(tokens, "gather_reduce") == "cpu":
+    dev = _device(tokens, "gather_reduce")
+    if dev == "cpu":
+        return gather_reduce_plain(tokens, p, q)
+    if dev == "meta":       # the dry-run: shapes and FLOPs only
         return gather_reduce_plain(tokens, p, q)
     B, gamma = tokens.shape
     code = _check_probs(p, q, B, gamma)
@@ -78,7 +83,10 @@ def cdf_sample(jrow: torch.Tensor,     # (B,) int32 p row in [0, Γ]
     does. The kernel sums fixed 4096-entry vocab splits over many blocks,
     then searches the split that holds the crossing
     (:func:`.ref.cdf_sample_split_plain` is that order in PyTorch)."""
-    if _device(jrow, "cdf_sample") == "cpu":
+    dev = _device(jrow, "cdf_sample")
+    if dev == "cpu":
+        return cdf_sample_plain(jrow, qrow, use_p, p, q, thresh)
+    if dev == "meta":       # the dry-run: shapes only
         return cdf_sample_plain(jrow, qrow, use_p, p, q, thresh)
     B = jrow.shape[0]
     code = _check_probs(p, q, B, q.shape[1])

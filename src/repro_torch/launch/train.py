@@ -1,7 +1,9 @@
 """Training launcher of the PyTorch port (the reference's
-``repro/launch/train.py``, host mode).
+``repro/launch/train.py``).
 
-Trains ``--arch`` on the synthetic LM pipeline with AdamW and a cosine
+Two modes:
+
+- default (host): trains ``--arch`` on the synthetic LM pipeline with AdamW and a cosine
 schedule: by default its REDUCED variant (``cfg.reduced()``, optionally
 resized by ``--d-model``/``--layers``), with ``--full`` the published
 config in its published dtype, on the card unless ``--device cpu``:
@@ -10,20 +12,29 @@ config in its published dtype, on the card unless ``--device cpu``:
         --steps 100 --batch 8 --seq 256 [--full] [--device cuda|cpu] \\
         [--micro-steps 2] [--ckpt out.npz]
 
+- ``--production-lower``: the full-size train step at ``train_4k`` against
+  the single-pod production mesh, traced on the meta device
+  (:func:`repro_torch.launch.dryrun.run_one`): prints its dry-run row, the
+  per-device memory and FLOPs, and exits 1 if the row failed. Nothing is
+  allocated and no card is needed:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
+        --production-lower
+
 Beside the reference's flags the port has ``--device`` and lets
 ``--layers`` cut the depth of a ``--full`` config too (published widths,
 fewer layers). Weights are random from seed 0 (a ``torch.Generator``: not
 the reference's draws). On the card every Mamba2 block's scan runs in
-kernel B5 and its gradient in ``ssd_scan_bwd``. The reference's
-``--production-lower`` (lowering the train step against the production
-mesh) belongs with the dry-run and sharding modules, which the port does
-not have yet.
+kernel B5 and its gradient in ``ssd_scan_bwd``. The reference documents
+``--production-lower`` and its parser lacks the flag; the port's runs the
+dry-run's ``train_4k`` row.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -54,6 +65,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--production-lower", action="store_true",
+                    help="trace the full-size train_4k step on the meta "
+                         "device against the production mesh and print "
+                         "its dry-run row")
     return ap.parse_args(argv)
 
 
@@ -144,8 +159,19 @@ def run(args: argparse.Namespace, after_steps=None) -> dict:
             "device": str(dev)}
 
 
+def production_lower(args: argparse.Namespace) -> int:
+    from .dryrun import format_row, run_one
+    row = run_one(args.arch, "train_4k", "single")
+    print(format_row(row), flush=True)
+    print(json.dumps(row), flush=True)
+    return 0 if row["ok"] else 1
+
+
 def main(argv=None) -> int:
-    s = run(parse_args(argv))
+    args = parse_args(argv)
+    if args.production_lower:
+        return production_lower(args)
+    s = run(args)
     print(f"loss {s['losses'][0]:.4f} -> {s['losses'][-1]:.4f}  "
           f"{s['s_per_step']:.3f} s/step  {s['tokens_per_s']:.0f} tokens/s"
           + (f"  peak {s['peak_mem_gb']:.2f} GiB" if s["peak_mem_gb"]

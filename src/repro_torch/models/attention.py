@@ -20,6 +20,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.decode_attn import decode_attn_call, paged_decode_attention
 from .kvcache import paged_update_layer, update_layer_cache
+from ..sharding.runtime import constrain_qkv
 from .layers import apply_rope, dense_init, rms_norm
 
 
@@ -56,7 +57,7 @@ def _project_q(x, p, cfg):
         q = q + p["bq"]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-    return q
+    return constrain_qkv(q)
 
 
 def _project_kv(x, p, cfg):
@@ -65,7 +66,7 @@ def _project_kv(x, p, cfg):
         k, v = k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return k, v
+    return constrain_qkv(k), constrain_qkv(v)
 
 
 def _qkv(x_new, p, cfg, abs_pos, angles):

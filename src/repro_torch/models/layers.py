@@ -19,9 +19,13 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
                fan_in: Optional[int] = None) -> torch.Tensor:
     """N(0, 1/fan_in) drawn directly in ``dtype`` on ``device`` (the
     reference draws f32 and casts; at full width the f32 copy of both
-    models would not fit the card, so the port never makes one)."""
+    models would not fit the card, so the port never makes one). On the
+    meta device the tensor has a shape and a dtype and nothing is drawn
+    (``gen`` is None there)."""
     fan_in = fan_in or shape[0]
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     return out.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
 
 

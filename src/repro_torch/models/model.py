@@ -40,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import PAGED_FAMILIES, ModelConfig
+from ..sharding.runtime import constrain, constrain_head_in, constrain_logits
 from . import moe
 from .attention import (attention_bidir, attention_cross, attention_decode,
                         attention_decode_paged, attention_train, cross_kv,
@@ -83,10 +84,14 @@ class Model:
         """Random weights drawn on ``self.device`` in the model dtype from a
         seeded ``torch.Generator`` (reference init scales; norms and biases
         zero). The draws differ from the reference's ``jax.random`` ones:
-        parity tests carry reference weights over with the bridge."""
+        parity tests carry reference weights over with the bridge. A model
+        on the meta device gets the same tree of shapes and dtypes with no
+        storage and no draws (the dry-run's parameters)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
         L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
         zeros = lambda *s: torch.zeros(s, dtype=dt, device=dev)
 
@@ -131,9 +136,10 @@ class Model:
 
     def _logits(self, params, h):
         cfg = self.cfg
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        h = constrain_head_in(rms_norm(h, params["final_norm"],
+                                       cfg.norm_eps))
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return (h @ head).float()
+        return constrain_logits((h @ head).float())
 
     def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
         """The residual FFN of one block: the SwiGLU MLP, or for a moe
@@ -166,7 +172,7 @@ class Model:
         def enc_layer(h, lp):
             h = h + attention_bidir(rms_norm(h, lp["ln1"], cfg.norm_eps),
                                     lp["attn"], cfg)
-            return self._mlp(lp, h)
+            return constrain(self._mlp(lp, h))
 
         h = frontend.to(self.dtype)
         for lp in _unbind(params["encoder"], cfg.encoder_layers):
@@ -202,7 +208,7 @@ class Model:
                 h = h + attention_cross(rms_norm(h, lp["ln_x"], eps),
                                         lp["xattn"], cfg,
                                         *cross_kv(lp["xattn"], cfg, enc_out))
-                return self._mlp_or_moe(lp, h)[0]
+                return constrain(self._mlp_or_moe(lp, h)[0])
 
             for lp in layers:
                 h = self._remat(dec_layer, h, lp, enc_out)
@@ -218,7 +224,8 @@ class Model:
             def layer(h, lp):
                 h = h + attention_train(rms_norm(h, lp["ln1"], eps),
                                         lp["attn"], cfg, prefix_len=prefix)
-                return self._mlp_or_moe(lp, h)
+                h, aux = self._mlp_or_moe(lp, h)
+                return constrain(h), aux
 
             aux = zero
             for lp in layers:
@@ -238,7 +245,7 @@ class Model:
         state (B5 on the card, forward and backward)."""
         y, _ = ssm_block_train(rms_norm(h, lp["ln1"], self.cfg.norm_eps),
                                lp["ssm"], self.cfg)
-        return h + y
+        return constrain(h + y)
 
     def _hybrid_train(self, params, h: torch.Tensor,
                       layers: list[dict]) -> torch.Tensor:
@@ -342,7 +349,20 @@ class Model:
                      seq_lens: Optional[torch.Tensor] = None,
                      slot_off: Optional[torch.Tensor] = None,
                      pos_off: Optional[torch.Tensor] = None,
-                     win_mask: Optional[torch.Tensor] = None):
+                     win_mask: Optional[torch.Tensor] = None,
+                     need_logits: bool = True):
+        """(logits, cache); (None, cache) without ``need_logits`` (a
+        chunked prefill's inner chunks: no lm head)."""
+        h, cache = self._window_hidden(params, tokens, cache, pos, window,
+                                       seq_lens, slot_off, pos_off, win_mask)
+        return (self._logits(params, h) if need_logits else None), cache
+
+    def _window_hidden(self, params, tokens: torch.Tensor, cache,
+                       pos: torch.Tensor, window: int = 0,
+                       seq_lens: Optional[torch.Tensor] = None,
+                       slot_off: Optional[torch.Tensor] = None,
+                       pos_off: Optional[torch.Tensor] = None,
+                       win_mask: Optional[torch.Tensor] = None):
         cfg = self.cfg
         T = tokens.shape[1]
         h = params["embed"][tokens.long()]
@@ -381,7 +401,7 @@ class Model:
                                      cache.v_buf[l], cache.pm_buf[l], pos,
                                      cache.ring, w, angles, *tree)
             h = self._mlp(lp, h + a)
-        return self._logits(params, h), cache
+        return h, cache
 
     def _encdec_window(self, params, h, cache: EncDecCache,
                        pos: torch.Tensor, T: int, w: int):
@@ -404,7 +424,7 @@ class Model:
             h = h + attention_cross(x, lp["xattn"], cfg, cache.cross_k[l],
                                     cache.cross_v[l])
             h = self._mlp(lp, h)
-        return self._logits(params, h), cache
+        return h, cache
 
     def _mamba(self, lp: dict, h: torch.Tensor, conv: torch.Tensor,
                state: torch.Tensor, T: int,
@@ -431,8 +451,7 @@ class Model:
                                          seq_lens)
             convs.append(conv)
             states.append(state)
-        return self._logits(params, h), SSMCache(conv=torch.stack(convs),
-                                                 state=torch.stack(states))
+        return h, SSMCache(conv=torch.stack(convs), state=torch.stack(states))
 
     def _hybrid_window(self, params, h, cache: HybridCacheT,
                        pos: torch.Tensor, T: int, w: int,
@@ -466,14 +485,15 @@ class Model:
         new = HybridCacheT(ssm=SSMCache(conv=torch.stack(convs),
                                         state=torch.stack(states)),
                            shared_attn=sa)
-        return self._logits(params, h), new
+        return h, new
 
     # ----------------------------------------------------------------- prefill
 
     def prefill(self, params, tokens: torch.Tensor, slots: int,
                 ring: bool = False, window: int = 0,
                 prompt_lens: Optional[torch.Tensor] = None,
-                frontend: Optional[torch.Tensor] = None):
+                frontend: Optional[torch.Tensor] = None,
+                chunk: Optional[int] = None):
         """Process the whole (right-padded) prompt through ``verify_step``
         into a fresh cache of ``slots`` positions. ``prompt_lens`` (B,) —
         each row's true length: recurrent state stops there exactly
@@ -481,7 +501,13 @@ class Model:
         query can attend them). ``frontend`` (B, F, D) — an encdec model
         encodes these frames and fills every decoder layer's cross K/V; a
         vlm refuses a live frontend (the reference's rule); the other
-        families ignore it. Returns (logits (B, S, V), cache)."""
+        families ignore it. Returns (logits (B, S, V), cache).
+
+        ``chunk`` (the reference's): a prompt longer than ``chunk`` and a
+        multiple of it runs in ``chunk``-token windows in order, so the
+        attention scores stay (chunk × slots); only the last window goes
+        through the lm head, and the logits are the last window's (B,
+        chunk, V). Full prompts only (no ``prompt_lens``)."""
         B, S = tokens.shape
         cfg = self.cfg
         if cfg.arch_type == "vlm" and frontend is not None:
@@ -508,6 +534,16 @@ class Model:
                 cache.cross_k[l].copy_(k)
                 cache.cross_v[l].copy_(v)
         pos0 = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        if chunk and S > chunk and S % chunk == 0:
+            if prompt_lens is not None:
+                raise ValueError("a chunked prefill takes full prompts")
+            n = S // chunk
+            for i in range(n - 1):
+                _, cache = self._window_step(
+                    params, tokens[:, i * chunk:(i + 1) * chunk], cache,
+                    pos0 + i * chunk, window, need_logits=False)
+            return self._window_step(params, tokens[:, (n - 1) * chunk:],
+                                     cache, pos0 + (n - 1) * chunk, window)
         return self.verify_step(params, tokens, cache, pos0, window,
                                 seq_lens=prompt_lens)
 

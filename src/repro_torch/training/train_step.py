@@ -80,7 +80,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             for i in range(micro_steps):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 l, c, a, g = grad_fn(state.params, mb)
-                grads = tree_map(torch.add, grads, g)
+                with torch.no_grad():       # in place: two copies at most
+                    for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
+                        acc.add_(gi)
+                del g
                 loss, ce, aux = loss + l, ce + c, aux + a
             inv = 1.0 / micro_steps
             grads = tree_map(lambda g: g * inv, grads)

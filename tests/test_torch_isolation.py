@@ -93,8 +93,10 @@ def test_engine_without_device_raises_on_a_cpu_machine():
 
 def test_kernel_wrappers_refuse_other_devices():
     """The wrappers take CPU tensors (plain version) or CUDA tensors
-    (kernel); anything else raises instead of silently copying."""
+    (kernel), and meta tensors by name (the dry-run's shapes); anything
+    else raises instead of silently copying."""
+    import types
     from repro_torch.kernels.decode_attn import decode_attn_call
-    q = torch.zeros((1, 1, 1, 1, 64), device="meta")
+    q = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         decode_attn_call(q, q, q, q, q)

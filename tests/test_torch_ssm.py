@@ -155,7 +155,11 @@ def test_scan_plain_matches_reference(case):
 
 
 def test_scan_wrappers_refuse_other_devices():
-    z = torch.zeros((1, 2, 1, 16), device="meta")
+    """A device the scan does not take raises (meta tensors are the
+    dry-run's named case: shapes only, ``tests/test_torch_dryrun.py``);
+    the launch-level wrapper refuses CPU tensors."""
+    import types
+    z = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         ssd_chunked_kernel(z, z, z, z, z, z, 8)
     x, Bm, Cm, dt, A, h0 = map(t, _scan_inputs(1, 4, 1, 16, 16, seed=0))

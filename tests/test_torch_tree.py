@@ -14,6 +14,8 @@ atol/rtol 1e-5 (float32, sum order only). The CUDA kernels B4a/B4b (alone
 and in their one-launch ``tree_verify_fused``) and B1's masked path are held
 against these plain versions on the card by ``chip_smoke.py``."""
 
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -280,8 +282,9 @@ def test_accept_rule_words_matches_reference(d_max, b_max):
 
 def test_tree_verify_wrapper_checks():
     """The one-launch wrapper: CPU tensors run B4a's and B4b's plain
-    versions (the card's packed words and counters are not read); meta
-    tensors and more than MAX_ENTRIES entries raise."""
+    versions (the card's packed words and counters are not read); a
+    device it does not take (meta is the dry-run's named case) and more
+    than MAX_ENTRIES entries raise."""
     spec = ttree.TreeSpec(8, 4)
     toks, logits = _verdict_inputs(spec, 128, seed=5)
     tt, tl = t(toks), t(logits)
@@ -295,10 +298,10 @@ def test_tree_verify_wrapper_checks():
         for a, w in zip(got, want[1:]):
             assert a.dtype == torch.int32
             np.testing.assert_array_equal(a.numpy(), w.numpy())
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tree_verify_fused(tt.to("meta"), tl.to("meta"), spec.parent_entry,
-                          spec.tree_pos, nv, spec.win_mask, spec.win_words,
-                          counters.to("meta"))
+        tree_verify_fused(other, other, spec.parent_entry, spec.tree_pos,
+                          nv, spec.win_mask, spec.win_words, other)
     big = ttree.TreeSpec(MAX_ENTRIES // 4, 4)           # T = MAX_ENTRIES + 1
     T = big.n_entries
     assert T == MAX_ENTRIES + 1
@@ -324,17 +327,18 @@ def test_tree_committed_matches_reference():
 
 
 def test_tree_accept_wrapper_checks():
-    """CPU tensors run the plain version; other devices raise."""
+    """CPU tensors run the plain version; devices the wrappers do not take
+    raise (meta is the dry-run's named case)."""
     spec = ttree.TreeSpec(2, 2)
     toks = torch.zeros((1, spec.n_entries), dtype=torch.int32)
     out = tree_accept(toks, toks, spec.parent_entry, spec.tree_pos,
                       spec.node_valid(2, 2), spec.win_mask)
     assert [int(x) for x in out] == [2, 3, 0]   # all match: depth 1, branch 0
-    meta = torch.zeros((1, 3, 8), device="meta")
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tree_argmax(meta)
+        tree_argmax(other)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tree_accept(toks.to("meta"), toks, spec.parent_entry, spec.tree_pos,
+        tree_accept(other, toks, spec.parent_entry, spec.tree_pos,
                     spec.node_valid(2, 2), spec.win_mask)
 
 
