@@ -1,0 +1,3 @@
+"""device.idle_share.batch: Share of the traced window in which no device
+operation ran, %."""
+from layers import idle_share as read  # noqa: F401
